@@ -1,10 +1,13 @@
-"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+"""Builds the package's CUDA kernels with nvcc and loads them with ctypes.
 
-At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` into one shared
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` (one nvcc per
+source, all started together) and the objects are linked into one shared
 library with a plain C interface, named by a hash of the sources and flags,
 under ``build/`` beside this file.  A library already built from the same
-sources is loaded as it is.  The kernels launch on the stream the caller
-passes, and each C entry point returns ``cudaGetLastError()``.
+sources is loaded as it is.  What ptxas reports (registers, shared memory,
+spills of each kernel) is kept beside the library as ``*.ptxas.txt``.  The
+kernels launch on the stream the caller passes, and each C entry point
+returns ``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -14,14 +17,15 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -32,7 +36,7 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
@@ -40,23 +44,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    return h.hexdigest()[:16]
+
+
+def run_all(commands):
+    """Start every command at once; raise with the output of the first that fails.
+    Returns the commands' stderr + stdout texts."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(commands, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(c)} failed:\n{out}")
+    return outs
+
+
 def library_path() -> str:
     """Path of the built library, compiling it first if it is missing."""
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(glob.glob(os.path.join(CSRC, "*"))):
-        with open(f, "rb") as fh:
-            h.update(os.path.basename(f).encode() + fh.read())
-    path = os.path.join(BUILD, f"libkernels_{h.hexdigest()[:16]}.so")
+    path = os.path.join(BUILD, f"libkernels_{_source_hash()}.so")
     if not os.path.exists(path):
         os.makedirs(BUILD, exist_ok=True)
+        cc = nvcc()
         tmp = f"{path}.tmp{os.getpid()}"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        logs = run_all([[cc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)])
+        run_all([[cc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        with open(ptxas_log_path(path), "w") as f:
+            f.write("".join(logs))
+        for o in objs:
+            os.remove(o)
         os.replace(tmp, path)
     return path
+
+
+def ptxas_log_path(lib_path: str | None = None) -> str:
+    """The file that holds ptxas's report for the built library."""
+    return (lib_path or library_path())[:-3] + ".ptxas.txt"
+
+
+def kernel_resources() -> dict:
+    """{kernel name fragment: (registers, spill store bytes, spill load bytes)}
+    from ptxas's report of the built library."""
+    with open(ptxas_log_path()) as f:
+        text = f.read()
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\w+)' for 'sm_90a'(.*?)Used (\d+) registers",
+                         text, re.S):
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", m.group(2))
+        out[m.group(1)] = (int(m.group(3)),) + tuple(int(v) for v in spills.groups())
+    return out
 
 
 @functools.cache

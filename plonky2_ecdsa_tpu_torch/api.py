@@ -1,60 +1,159 @@
 """Batched ECDSA proving on PyTorch: build once, prove many.
 
-Counterpart of ``plonky2_ecdsa_tpu.api.EcdsaProverSystem``.  The circuit, the
-witness tape and the fixed data are the reference's host code; ``prove``
-runs the port's prover on the chosen device, and ``verify`` /
-``verify_statement`` run the reference's numpy verifier.
+Counterpart of ``plonky2_ecdsa_tpu.api``: the verify circuit is built once per
+curve, the fixed data is committed once on the chosen device, and whole
+signature batches go through the tensor prover, one batch lane per
+statement.  Everything here is this package's own: circuit, gadgets, witness
+tape, prover and verifier.
 """
 
 from __future__ import annotations
 
-from plonky2_ecdsa_tpu import api as _ref
-from plonky2_ecdsa_tpu.curve.native import SECP256K1
-from plonky2_ecdsa_tpu.prover.verifier import verify, verify_one_exact  # noqa: F401
+from dataclasses import dataclass
 
-from .prover.data import build_circuit_data
-from .prover.prover import Proof, make_prover
+import numpy as np
 
-EcdsaStatement = _ref.EcdsaStatement
-random_statements = _ref.random_statements
+from .circuit.builder import CircuitBuilder
+from .circuit.config import CircuitConfig
+from .circuit.foreign import BITS, base_field, scalar_field
+from .curve import native as cn
+from .curve.native import SECP256K1  # noqa: F401
+from .gadgets import ecdsa as ge
+from .gadgets import nonnative as gn
+from .gadgets.curve import AffinePointTarget
+from .prover.data import CircuitData, build_circuit_data
+from .prover.prover import Proof, Prover
+from .prover.verifier import verify, verify_one_exact  # noqa: F401
+
+MASK = (1 << BITS) - 1
+
+
+def int_to_limbs(vals, num_limbs: int = 9) -> np.ndarray:
+    """[B] Python ints -> [B, num_limbs] uint64 rows of 29-bit limbs."""
+    out = np.zeros((len(vals), num_limbs), np.uint64)
+    for i, v in enumerate(vals):
+        v = int(v)
+        for j in range(num_limbs):
+            out[i, j] = (v >> (BITS * j)) & MASK
+    return out
+
+
+@dataclass
+class EcdsaStatement:
+    """One signature-verification instance (native ints)."""
+    msg: int
+    r: int
+    s: int
+    pk: cn.Point
 
 
 class EcdsaProverSystem:
-    """The ECDSA-verify circuit for one curve, proved on `device`."""
+    """The ECDSA-verify circuit for one curve, proved and verified on `device`.
 
-    def __init__(self, curve=SECP256K1, device="cuda"):
-        self.ref = _ref.EcdsaProverSystem(curve)
-        self.circuit = self.ref.circuit
+    Public inputs, in order: pk.x, pk.y, msg, r, s (45 limbs of 29 bits), so a
+    proof binds the statement "signature (r, s) on msg verifies under pk"."""
+
+    def __init__(self, curve: cn.CurveParams = cn.SECP256K1, device="cuda"):
+        if curve is not cn.SECP256K1:
+            raise ValueError(f"unsupported curve {curve.name}")
+        self.curve = curve
         self.device = device
-        self._prover = None
+        b = CircuitBuilder(CircuitConfig.standard_ecc_config())
+        sf = scalar_field(curve)
+        msg = gn.add_virtual_nonnative(b, sf)
+        r = gn.add_virtual_nonnative(b, sf)
+        s = gn.add_virtual_nonnative(b, sf)
+        bf = base_field(curve)
+        pk = AffinePointTarget(curve, gn.add_virtual_nonnative(b, bf),
+                               gn.add_virtual_nonnative(b, bf))
+        for name, t in [("msg", msg), ("r", r), ("s", s)]:
+            b.register_input(name, t.limbs)
+        b.register_input("pk_x", pk.x.limbs)
+        b.register_input("pk_y", pk.y.limbs)
+        for t in (pk.x, pk.y, msg, r, s):
+            b.register_public_inputs(t.limbs)
+        ge.verify_secp256k1_message_circuit(
+            b, msg, ge.ECDSASignatureTarget(r=r, s=s), ge.ECDSAPublicKeyTarget(point=pk))
+        self.circuit = b.build()
+        self._data: CircuitData | None = None
+        self._prover: Prover | None = None
+
+    # ------------------------------------------------------------------ stats
+    @property
+    def n(self) -> int:
+        return self.circuit.n
+
+    def gate_counts(self) -> dict:
+        """Rows per gate type."""
+        return {gate.gate_id(): len(self.circuit.gate_rows.get(gi, ()))
+                for gi, gate in enumerate(self.circuit.gates)}
+
+    # ------------------------------------------------------------- fixed data
+    @property
+    def data(self) -> CircuitData:
+        """The fixed data, committed on the device at first use."""
+        if self._data is None:
+            self._data = build_circuit_data(self.circuit, self.device)
+        return self._data
 
     @property
-    def data(self):
-        """The reference's CircuitData (host build, made on first use)."""
-        if self.ref._data is None:
-            self.ref._data = build_circuit_data(self.circuit)
-        return self.ref.data
-
-    @property
-    def prover(self):
-        """The port's prover for this circuit (fixed data on the device)."""
+    def prover(self) -> Prover:
         if self._prover is None:
-            self._prover = make_prover(self.data, self.device)
+            self._prover = Prover(self.data)
         return self._prover
 
-    def witness_vals(self, stmts):
-        """Witness as the tape's value table [T, B] u64, and the PIs [B, 45]."""
-        return self.ref.witness_vals(stmts)
+    # --------------------------------------------------------------- witness
+    def _inputs(self, stmts) -> dict:
+        return {
+            "msg": int_to_limbs([st.msg for st in stmts]),
+            "r": int_to_limbs([st.r for st in stmts]),
+            "s": int_to_limbs([st.s for st in stmts]),
+            "pk_x": int_to_limbs([st.pk.x for st in stmts]),
+            "pk_y": int_to_limbs([st.pk.y for st in stmts]),
+        }
 
+    def witness(self, stmts):
+        """The witness matrix [num_wires, n, B] u64 and the PIs [B, 45]."""
+        W = self.circuit.generate_witness(self._inputs(stmts), len(stmts))
+        return W, self.circuit.public_input_values()
+
+    def witness_vals(self, stmts):
+        """The witness as the tape's value table [T, B] u64 (what
+        Prover.run_vals takes), and the PIs [B, 45]."""
+        vals = self.circuit._run_tape(self._inputs(stmts), len(stmts))
+        return vals, self.circuit.public_input_values()
+
+    # ---------------------------------------------------------- prove, verify
     def prove(self, stmts) -> Proof:
         """One proof with a batch lane per statement."""
         return self.prover.run_vals(*self.witness_vals(stmts))
 
     def verify(self, proof: Proof) -> bool:
-        self.data  # the JAX-free build, before the reference reads it
-        return self.ref.verify(proof)
+        return verify(self.data, proof)
 
-    def verify_statement(self, proof: Proof, i: int, stmt) -> bool:
+    def verify_statement(self, proof: Proof, i: int, stmt: EcdsaStatement) -> bool:
         """verify() and lane i's public inputs bind the given statement."""
-        self.data
-        return self.ref.verify_statement(proof, i, stmt)
+        return verify(self.data, proof) and bool(np.array_equal(proof.pis[i],
+                                                                statement_pis(stmt)))
+
+
+def statement_pis(stmt: EcdsaStatement) -> np.ndarray:
+    """The 45 public-input limbs that bind a proof lane to `stmt`."""
+    return np.concatenate([int_to_limbs([v])[0] for v in
+                           (stmt.pk.x, stmt.pk.y, stmt.msg, stmt.r, stmt.s)])
+
+
+def random_statements(curve: cn.CurveParams, count: int, seed: int = 0) -> list:
+    """`count` valid statements from numpy's default_rng(seed): keys, messages
+    and nonces drawn 40 bytes at a time, signed by the native curve layer."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        sk = int.from_bytes(rng.bytes(40), "little") % curve.n or 1
+        msg = int.from_bytes(rng.bytes(40), "little") % curve.n
+        nonce = int.from_bytes(rng.bytes(40), "little") % curve.n or 1
+        _, pk = cn.keygen(curve, sk)
+        r, s = cn.sign_message(curve, msg, sk, nonce)
+        assert cn.verify_message(curve, msg, r, s, pk)
+        out.append(EcdsaStatement(msg=msg, r=r, s=s, pk=pk))
+    return out

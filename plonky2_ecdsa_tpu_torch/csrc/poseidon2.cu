@@ -15,6 +15,10 @@
 // warp.  The linear layers accumulate 32-bit halves in u64 (the external
 // layer grows values 64x, the internal one 33x, which a plain u64 sum would
 // overflow) and reduce once per word, as _ext_layer_u64/_int_layer_u64 do.
+//
+// The grind is bound by the same integer work, times the candidates it has to
+// try: the sum over lanes of (first hit + 1).  Its design (see grind_kernel)
+// spreads every lane's search over all the SMs and keeps it exact.
 
 #include <cuda_runtime.h>
 
@@ -112,44 +116,106 @@ __global__ void permute_kernel(const uint64_t* __restrict__ in,
   for (int i = 0; i < WIDTH; i++) out[i * m + j] = x[i];
 }
 
-// One block per lane.  Thread t of the block tries candidate base + t, with
-// state[0] = candidate and the lane's words 1..11; a hit clears the top
-// pow_bits bits of output word 7.  The block takes the smallest hit of each
-// sweep (a shared-memory min) and stops at the first sweep with one, so the
-// result is the first hit in candidate order, as the numpy sweep finds it.
-// out[lane] = (witness, found); candidates run below `cap`.
-__global__ void grind_kernel(const uint64_t* __restrict__ states,
-                             uint64_t* __restrict__ out, int shift,
-                             unsigned long long cap) {
-  __shared__ unsigned long long best;
-  const uint64_t* st = states + (long long)blockIdx.x * WIDTH;
-  const unsigned long long none = ~0ull;
-  for (unsigned long long base = 0; base < cap; base += blockDim.x) {
-    if (threadIdx.x == 0) best = none;
-    __syncthreads();
-    unsigned long long c = base + threadIdx.x;
-    if (c < cap) {
+// The FRI proof-of-work search: per lane of the [12, lanes] states, the FIRST
+// candidate c in ascending order below `cap` for which permuting the lane's
+// state with word 0 set to c clears the top bits of output word 7.
+//
+// The whole card searches every lane.  No block belongs to a lane: each WARP
+// draws tickets from a per-lane counter in global memory (ticket k = the 32
+// consecutive candidates from 32 k, one per thread), so a lane's candidates
+// are handed out in ascending order.  A warp stays on a lane until the lane
+// is finished, then moves on to the next lane, through all of them in cyclic
+// order; warps start on lane (warp index mod lanes), so with one lane all of
+// them work on it, and with many the SMs that finished lanes give up go to
+// the lanes still open (the slowest of 32 lanes needs about four times the
+// mean).  A hit lowers the lane's `best` word (atomicMin; hits are rare, so
+// it is off the common path).  There is no block-wide barrier anywhere.
+//
+// Why the result is exact whatever the schedule: let h be the lane's true
+// first hit.  `best` only ever holds hits, so best >= h at all times.  A
+// ticket is dropped only when its base is above `best` (or at or above
+// `cap`), hence above h: no ticket that contains a candidate <= h is ever
+// dropped, and whoever draws a ticket that is not dropped tries all of it.
+// Tickets are consecutive, and every warp keeps drawing from each lane until
+// it draws a ticket that is dropped (both words only move one way, so every
+// later ticket would be dropped too).  So every candidate <= min(h, cap - 1)
+// is tried, h included, and when the kernel ends best == h: the first hit in
+// candidate order; best stays all-ones where the cap is exhausted.
+//
+// The cost of the design is overshoot: candidates above h that are started
+// before h's own permutation has finished and lowered `best`, about 1.5 per
+// thread then working on the lane.  It grows with the threads in flight and
+// the rate does not: two warps per scheduler already reach the rate of the
+// bulk kernel, at a quarter of its latency per permutation.  So the grid is
+// ONE block of 256 threads per SM (33 792 threads on 132 SMs), not the
+// occupancy the registers would allow.  Spread over the k lanes still open,
+// each finish wastes about 1.5 * 33 792 / k: summed over 32 lanes,
+// 1.5 * 33 792 * H(32) = 206 000 candidates, 10% of the 32 * 2^16 useful
+// ones at 16 bits.
+//
+// Small savings: words 1..11 are constants of the lane, so the first
+// external layer is linear in the candidate: L = ext_layer(0, w1..w11) is
+// computed once per visit of a lane (kept in shared memory, 96 bytes a warp)
+// and a candidate's state is L + c * (column 0 of the matrix); and only word
+// 7 of the output is read, so the last round is written out of the loop,
+// where the compiler drops the rest of its external layer.
+//
+// best[lanes] and ticket[lanes] both start as all-ones (a ticket counter
+// wraps to 0 on its first draw), so the caller fills one buffer.
+constexpr int GRIND_THREADS = 256;
+constexpr int GRIND_BLOCKS_PER_SM = 1;
+constexpr int GRIND_WARPS = GRIND_THREADS / 32;
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+__global__ void __launch_bounds__(GRIND_THREADS, GRIND_BLOCKS_PER_SM)
+grind_kernel(const uint64_t* __restrict__ states, unsigned long long* best,
+             unsigned long long* ticket, int lanes, int shift,
+             unsigned long long cap) {
+  __shared__ uint64_t first_layer[GRIND_WARPS][WIDTH];
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const unsigned gw = blockIdx.x * GRIND_WARPS + warp;
+  uint64_t* L = first_layer[warp];
+  for (int visit = 0; visit < lanes; visit++) {
+    const int lane = (int)((gw + (unsigned)visit) % (unsigned)lanes);
+    __syncwarp();  // every thread is done with the previous lane's L
+    if (t == 0) {
       uint64_t x[WIDTH];
-      x[0] = c;
+      x[0] = 0;
 #pragma unroll
-      for (int i = 1; i < WIDTH; i++) x[i] = st[i];
-      permute(x);
-      if ((x[7] >> shift) == 0) atomicMin(&best, c);
+      for (int i = 1; i < WIDTH; i++) x[i] = states[(long long)i * lanes + lane];
+      ext_layer(x);
+#pragma unroll
+      for (int i = 0; i < WIDTH; i++) L[i] = x[i];
     }
-    __syncthreads();
-    unsigned long long b = best;
-    __syncthreads();  // every thread has read `best` before it is reset
-    if (b != none) {
-      if (threadIdx.x == 0) {
-        out[2 * blockIdx.x] = b;
-        out[2 * blockIdx.x + 1] = 1;
+    __syncwarp();
+    for (;;) {
+      unsigned long long base = 0, seen = 0;
+      if (t == 0) {
+        base = (atomicAdd(&ticket[lane], 1ull) + 1ull) * 32ull;
+        seen = *(volatile unsigned long long*)&best[lane];
       }
-      return;
+      base = __shfl_sync(FULL_WARP, base, 0);
+      seen = __shfl_sync(FULL_WARP, seen, 0);
+      if (base >= cap || base > seen) break;  // the lane is finished (warp-uniform)
+      const unsigned long long c = base + t;
+      if (c < cap) {
+        uint64_t x[WIDTH];
+#pragma unroll
+        for (int i = 0; i < WIDTH; i++) {
+          // column 0 of circ(2 M4, M4, M4): M4's first column is (5, 4, 1, 1)
+          const uint64_t k = ((i & 3) == 0 ? 5 : (i & 3) == 1 ? 4 : 1) * (i < 4 ? 2 : 1);
+          x[i] = gl::add(L[i], c * k);  // c < 2^31, so c * k < p
+        }
+        for (int r = 0; r < HALF_FULL; r++) full_round(x, r);
+        for (int r = HALF_FULL; r < HALF_FULL + PARTIAL; r++) {
+          x[0] = sbox(gl::add(x[0], RC[r][0]));
+          int_layer(x);
+        }
+        for (int r = HALF_FULL + PARTIAL; r < ROUNDS - 1; r++) full_round(x, r);
+        full_round(x, ROUNDS - 1);  // only x[7] is read below
+        if ((x[7] >> shift) == 0) atomicMin(&best[lane], c);
+      }
     }
-  }
-  if (threadIdx.x == 0) {
-    out[2 * blockIdx.x] = 0;
-    out[2 * blockIdx.x + 1] = 0;
   }
 }
 
@@ -172,10 +238,18 @@ int p2_permute(const uint64_t* in, uint64_t* out, long long m, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int p2_grind(const uint64_t* states, uint64_t* out, int lanes, int pow_bits,
+// states [12, lanes]; scratch [2, lanes], filled with all-ones by the caller:
+// row 0 comes back as each lane's first hit (all-ones: none below cap), row 1
+// is the ticket counters.  Launches on the current device.
+int p2_grind(const uint64_t* states, uint64_t* scratch, int lanes, int pow_bits,
              long long cap, void* stream) {
-  grind_kernel<<<lanes, 256, 0, (cudaStream_t)stream>>>(
-      states, out, 64 - pow_bits, (unsigned long long)cap);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long* s = (unsigned long long*)scratch;
+  grind_kernel<<<sms * GRIND_BLOCKS_PER_SM, GRIND_THREADS, 0, (cudaStream_t)stream>>>(
+      states, s, s + lanes, lanes, 64 - pow_bits, (unsigned long long)cap);
   return (int)cudaGetLastError();
 }
 

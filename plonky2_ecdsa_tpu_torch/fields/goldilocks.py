@@ -2,8 +2,8 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.fields.goldilocks``.  An element is ONE
 ``torch.int64`` tensor holding the u64 bit pattern of its canonical value
-(the reference carries a ``(lo, hi)`` u32 pair, which the TPU forced; pairs
-exist here only at the boundary with the reference, see ``to_pair``).
+(the reference carries a ``(lo, hi)`` u32 pair, which the TPU forced; this
+package has no pairs).  The numpy host field is ``goldilocks_host``.
 
 PyTorch has no add, shift or compare on unsigned 64-bit tensors, so:
   * an unsigned compare is a signed compare after XOR with the sign bit;
@@ -19,12 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from plonky2_ecdsa_tpu.fields import goldilocks as _ref
+from .goldilocks_host import (MULTIPLICATIVE_GROUP_GENERATOR, P,  # noqa: F401
+                              POWER_OF_TWO_GENERATOR, TWO_ADICITY, W_EXT, root_of_unity)
 
-P = _ref.P
 M32 = 0xFFFFFFFF
 EPS = M32                      # 2^64 mod p; also (x - p) mod 2^64 == x + EPS
-W_EXT = _ref.W_EXT             # GF(p^2) = GF(p)[x] / (x^2 - 7)
 _SIGN = -(1 << 63)
 
 
@@ -159,25 +158,17 @@ def const(c: int, shape=(), device="cpu"):
 
 
 # ---------------------------------------------------------------------------
-# Conversions: int64 tensor <-> numpy u64 <-> the reference's (lo, hi) pairs
+# Conversions: int64 tensor <-> numpy u64
 # ---------------------------------------------------------------------------
 
 def from_u64(arr, device="cpu"):
     """numpy uint64 array (values < p) -> int64 tensor on `device`."""
-    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64)).view(np.int64)
-    return torch.from_numpy(a.copy()).to(device)
+    a = np.array(arr, dtype=np.uint64, order="C").view(np.int64)   # a copy; keeps 0-d
+    return torch.from_numpy(a).to(device)
 
 
 def to_u64(t) -> np.ndarray:
     return t.detach().contiguous().cpu().numpy().view(np.uint64)
-
-
-def from_pair(lo, hi, device="cpu"):
-    return from_u64(_ref.to_u64(lo, hi), device)
-
-
-def to_pair(t):
-    return _ref.from_u64(to_u64(t))
 
 
 def from_ints(values, device="cpu"):

@@ -3,25 +3,95 @@
 Counterpart of ``plonky2_ecdsa_tpu.hash.poseidon``.  The state is stacked:
 one tensor with leading axis 12.  ``permute_stacked`` sends a CUDA state to
 the kernel in ``poseidon_cuda`` and a CPU state to ``permute_plain`` below.
-All constants (round constants, M4, the internal diagonal) come from the
-reference module, so there is one source of truth.
+The round constants are derived here, by the same Grain-LFSR stream as the
+reference; a test holds them against the frozen vectors and the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from plonky2_ecdsa_tpu.hash import poseidon as _ref
 
 from ..fields import goldilocks as gl
 
-WIDTH = _ref.WIDTH
-RATE = _ref.RATE
-HALF_FULL_ROUNDS = _ref.HALF_FULL_ROUNDS
-PARTIAL_ROUNDS = _ref.PARTIAL_ROUNDS
-TOTAL_ROUNDS = _ref.TOTAL_ROUNDS
-RC_TABLE = _ref._RC_TABLE                  # [30, 12] u64, round order
-DIAG_M1 = [d - 1 for d in _ref.INTERNAL_DIAG]
+WIDTH = 12
+RATE = 8
+HALF_FULL_ROUNDS = 4
+PARTIAL_ROUNDS = 22
+TOTAL_ROUNDS = 2 * HALF_FULL_ROUNDS + PARTIAL_ROUNDS  # 30
+
+# Internal-round diagonal mu_i (M_I[i][i] = mu_i, off-diagonal 1).
+INTERNAL_DIAG = (2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 22)
+DIAG_M1 = [d - 1 for d in INTERNAL_DIAG]
+
+
+def _gen_round_constants():
+    """Grain-LFSR round-constant stream (the Poseidon reference derivation).
+
+    Init sequence: field tag 1 (prime field, 2 bits), sbox tag 0 (x^alpha,
+    4 bits), field size 64 (12 bits), t=12 (12 bits), R_F=8 (10 bits),
+    R_P=22 (10 bits), then 30 ones; 80-bit LFSR with taps 62,51,38,23,13,0;
+    first 160 output bits discarded; shrinking sampler (emit the bit
+    following each 1, skip the bit following each 0); 64-bit MSB-first
+    candidates rejection-sampled until < p.  Poseidon2 consumes 118 values
+    in application order: 4 external rounds x 12, 22 internal rounds x 1,
+    4 external rounds x 12."""
+    bits = []
+
+    def push(v, w):
+        bits.extend((v >> (w - 1 - i)) & 1 for i in range(w))
+
+    push(1, 2)                       # prime field
+    push(0, 4)                       # x^alpha S-box
+    push(64, 12)                     # field bits
+    push(WIDTH, 12)                  # t
+    push(2 * HALF_FULL_ROUNDS, 10)   # R_F
+    push(PARTIAL_ROUNDS, 10)         # R_P
+    bits.extend([1] * 30)
+    state = bits[:]
+    assert len(state) == 80
+
+    def clock():
+        nb = (state[62] ^ state[51] ^ state[38] ^ state[23]
+              ^ state[13] ^ state[0])
+        state.pop(0)
+        state.append(nb)
+        return nb
+
+    for _ in range(160):
+        clock()
+
+    def next_bit():
+        while True:
+            if clock() == 1:
+                return clock()
+            clock()
+
+    out = []
+    while len(out) < 2 * HALF_FULL_ROUNDS * WIDTH + PARTIAL_ROUNDS:
+        v = 0
+        for _ in range(64):
+            v = (v << 1) | next_bit()
+        if v < gl.P:
+            out.append(v)
+    return out
+
+
+def _rc_table():
+    """[30, 12] u64 in round order: rows 0-3 and 26-29 external, rows 4-25
+    internal with only column 0 set."""
+    rc = _gen_round_constants()
+    nxt = HALF_FULL_ROUNDS * WIDTH
+    table = np.zeros((TOTAL_ROUNDS, WIDTH), dtype=np.uint64)
+    for r in range(HALF_FULL_ROUNDS):
+        table[r] = rc[r * WIDTH:(r + 1) * WIDTH]
+        off = nxt + PARTIAL_ROUNDS + r * WIDTH
+        table[HALF_FULL_ROUNDS + PARTIAL_ROUNDS + r] = rc[off:off + WIDTH]
+    table[HALF_FULL_ROUNDS:HALF_FULL_ROUNDS + PARTIAL_ROUNDS, 0] = rc[nxt:nxt + PARTIAL_ROUNDS]
+    return table
+
+
+RC_TABLE = _rc_table()
 
 
 def _sbox(x):

@@ -83,15 +83,18 @@ def grind(state, pow_bits: int, max_candidates: int):
         raise ValueError(f"grind: pow_bits={pow_bits}, max_candidates={max_candidates}")
     if state.device.type == "cpu":
         return grind_plain(state, pow_bits, max_candidates)
-    st = state.t().contiguous()                            # [B, 12]: a lane's words together
-    B = st.shape[0]
-    out = torch.empty((B, 2), dtype=torch.int64, device=st.device)
+    st = state
+    B = st.shape[1]
+    # row 0: each lane's first hit (all-ones: none); row 1: its ticket counter
+    scratch = torch.full((2, B), -1, dtype=torch.int64, device=st.device)
     if B:
-        _build.check(_lib().p2_grind(st.data_ptr(), out.data_ptr(), B, pow_bits,
-                                     max_candidates, _build.stream_ptr(st)),
-                     "poseidon2 grind")
+        with torch.cuda.device(st.device):
+            _build.check(_lib().p2_grind(st.data_ptr(), scratch.data_ptr(), B, pow_bits,
+                                         max_candidates, _build.stream_ptr(st)),
+                         "poseidon2 grind")
         grind.launches += 1
-    return out[:, 0], out[:, 1] != 0
+    found = scratch[0] != -1
+    return torch.where(found, scratch[0], 0), found
 
 
 grind.launches = 0

@@ -55,9 +55,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_stages: no CUDA device", file=sys.stderr)
         return 1
-    pkg = os.path.dirname(os.path.abspath(__file__))
-    os.environ.setdefault("PLONKY2_TPU_NATIVE_DIR", os.path.join(pkg, "build"))
-
     from plonky2_ecdsa_tpu_torch import api
     from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
     from plonky2_ecdsa_tpu_torch.prover import prover

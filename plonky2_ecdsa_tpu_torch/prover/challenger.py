@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from plonky2_ecdsa_tpu.prover.challenger import GRIND_EXHAUSTED
-
+from ..fields import goldilocks as gl
 from ..hash import poseidon, poseidon_cuda
+
+
+GRIND_EXHAUSTED = 0xFFFFFFFF   # witness of a lane whose grind ran out of candidates
 
 
 class Challenger:
@@ -63,6 +65,15 @@ class Challenger:
         """count index tensors in [0, domain_size) (a power of two: low bits)."""
         assert domain_size & (domain_size - 1) == 0
         return [self.get_challenge() & (domain_size - 1) for _ in range(count)]
+
+    def check_pow(self, witness, pow_bits: int):
+        """Absorb the witness [*batch] and draw the response; True per lane
+        where its top pow_bits bits are zero (the verifier's side of grind)."""
+        assert 0 < pow_bits <= 32
+        if self.inputs:
+            self._duplex()
+        self.observe(witness)
+        return gl.shr(self.get_challenge(), 64 - pow_bits) == 0
 
     def grind(self, pow_bits: int):
         """Find, per lane, the first witness whose response clears pow_bits

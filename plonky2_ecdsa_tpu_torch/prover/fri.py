@@ -2,17 +2,15 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.prover.fri.fri_prove`` (fri.py:93):
 arity-2 folds, each committed layer's leaf holding the (F(x), F(-x))
-extension pair.  The fold schedule and domain tables are the reference's.
+extension pair.
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
-import numpy as np
 import torch
-
-from plonky2_ecdsa_tpu.prover import fri as _ref
 
 from ..fields import goldilocks as gl
 from ..hash import merkle
@@ -21,14 +19,50 @@ from . import ntt
 P = gl.P
 
 
+def plan(N: int, cfg):
+    """(num_layers, final_size, nfinal) of the fold schedule."""
+    final_size = min(N, 1 << (cfg.fri.final_poly_max_degree_bits + cfg.fri.rate_bits))
+    num_layers = max(0, (N // final_size).bit_length() - 1)
+    return num_layers, final_size, final_size >> cfg.fri.rate_bits
+
+
+def _domain_tables(N: int, num_layers: int):
+    """Per layer (shift, generator) of its evaluation coset, and the final
+    domain's shift (Python ints)."""
+    layers = []
+    shift = ntt.COSET_SHIFT
+    size = N
+    for _ in range(num_layers):
+        layers.append((shift, gl.root_of_unity(size)))
+        shift = shift * shift % P
+        size //= 2
+    return layers, shift
+
+
 @functools.lru_cache(maxsize=None)
 def domain_tables(N: int, num_layers: int, device):
     """Per layer inv(2 x_j) [half]; and shift^-i over the final domain."""
-    tables, final_shift = _ref._domain_tables(N, num_layers)
-    inv2x = [gl.from_u64(t[2], device) for t in tables]
-    size = N >> num_layers
-    sp = np.array([pow(final_shift, -i, P) for i in range(size)], dtype=np.uint64)
-    return inv2x, gl.from_u64(sp, device)
+    layers, final_shift = _domain_tables(N, num_layers)
+    inv2x = []
+    size = N
+    for shift, g in layers:
+        first = gl.const(pow(2 * shift % P, -1, P), (), device)
+        inv2x.append(gl.mul(gl.powers(gl.const(pow(g, -1, P), (), device), size // 2), first))
+        size //= 2
+    spow = gl.powers(gl.const(pow(final_shift, -1, P), (), device), N >> num_layers)
+    return inv2x, spow
+
+
+@dataclass
+class FriProof:
+    """Device form: int64 tensors.  Host form (prover.to_host): numpy u64
+    arrays, extension values as (c0, c1) tuples, indices int64."""
+    caps: list            # per layer [B, C, 4]
+    final_coeffs: tuple   # ext [B, nfinal]
+    indices: object       # [B, Q]
+    layer_leaves: list    # per layer [B, Q, 4]
+    layer_paths: list     # per layer [B, Q, depth, 4]
+    pow_witness: object = None   # [B], None if pow_bits = 0
 
 
 def _stack4(e, half):
@@ -37,10 +71,10 @@ def _stack4(e, half):
                         e[0][..., half:], e[1][..., half:]], -1)
 
 
-def fri_prove(challenger, F, N: int, cfg) -> _ref.FriProof:
+def fri_prove(challenger, F, N: int, cfg) -> FriProof:
     """F: ext pair [B, N] (the reduced polynomial's LDE) -> FriProof of
     int64 tensors (indices int64 [B, Q], pow_witness [B] or None)."""
-    num_layers, _final_size, nfinal = _ref.plan(N, cfg)
+    num_layers, _final_size, nfinal = plan(N, cfg)
     inv2x, spow = domain_tables(N, num_layers, F[0].device)
     inv2 = pow(2, -1, P)
 
@@ -84,6 +118,6 @@ def fri_prove(challenger, F, N: int, cfg) -> _ref.FriProof:
         idx = li
         size = half
 
-    return _ref.FriProof(caps=caps, final_coeffs=final, indices=indices,
+    return FriProof(caps=caps, final_coeffs=final, indices=indices,
                          layer_leaves=layer_leaves, layer_paths=layer_paths,
                          pow_witness=pow_witness)

@@ -2,7 +2,7 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.prover.ntt``.  Every transform is sub-NTT
 launches (``ntt_cuda``): sizes from FOUR_STEP_MIN up run as a four-step
-(two sub-NTTs and a transpose, split by the reference's ``_split2``), smaller
+(two sub-NTTs and a transpose, split by ``_split2``), smaller
 ones (the FRI final polynomial, test circuits) as one sub-NTT along the
 transform axis.  Coset scales and 1/n fold into the sub-NTTs' pre/post
 multiplies.  The transforms are exact, so the outputs equal the reference's.
@@ -12,22 +12,27 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
-
-from plonky2_ecdsa_tpu.prover import ntt as _ref
 
 from ..fields import goldilocks as gl
 from . import ntt_cuda
+from .ntt_cuda import FOUR_STEP_MIN, _split2
 
 P = gl.P
-FOUR_STEP_MIN = _ref._FOUR_STEP_MIN
-COSET_SHIFT = _ref.COSET_SHIFT
+COSET_SHIFT = gl.MULTIPLICATIVE_GROUP_GENERATOR   # plonky2's coset shift
 
 
 @functools.lru_cache(maxsize=None)
 def coset_powers(n: int, inverse: bool, device) -> torch.Tensor:
     """shift^i (or shift^-i), i < n."""
-    return gl.from_u64(_ref._coset_powers(n, inverse), device)
+    s = pow(COSET_SHIFT, P - 2, P) if inverse else COSET_SHIFT
+    return gl.powers(gl.const(s, (), device), n)
+
+
+def lde_domain(N: int) -> np.ndarray:
+    """The coset points shift * w_N^i in natural order (host u64)."""
+    return gl.to_u64(gl.mul(gl.powers(gl.const(gl.root_of_unity(N)), N), COSET_SHIFT))
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +49,7 @@ def _transform(x, n: int, inverse: bool, pre=None, post=None):
     An inverse small transform expects `post` to carry the 1/n."""
     lead, k = x.shape[:-1], x.shape[-1]
     if n >= FOUR_STEP_MIN:
-        n2 = _ref._split2(n)[1]
+        n2 = _split2(n)[1]
         if k % n2:   # compact input that is not whole rows: pad to n
             x = torch.cat([x, x.new_zeros(lead + (n - k,))], -1)
             pre = None if pre is None else torch.cat([pre, pre.new_ones(n - k)])

@@ -5,17 +5,15 @@ Counterpart of ``plonky2_ecdsa_tpu.prover.ntt_pallas``: ``sub_ntt`` replaces
 composes two of them with a transpose, as ntt_pallas.four_step does.
 ``sub_ntt`` takes the plain torch version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``sub_ntt.launches`` counts its
-kernel launches.  Twiddle tables come from the reference's host generators.
+kernel launches.  Twiddle tables are built with the field on the device they
+are cached for.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
-
-from plonky2_ecdsa_tpu.prover import ntt as _ref
 
 from .. import _build
 from ..fields import goldilocks as gl
@@ -24,24 +22,49 @@ SMEM_WORDS = 4096      # words of one block's [n_t, TL] tile (32 KiB)
 MAX_TILE = 32          # columns per block
 
 
+FOUR_STEP_MIN = 1 << 10   # sizes from here up run as a four-step
+
+
+def _split2(n: int):
+    """n = n1 * n2 with n1 <= n2, both powers of two."""
+    l = n.bit_length() - 1
+    return 1 << (l // 2), 1 << (l - l // 2)
+
+
+def _root(n: int, inverse: bool) -> int:
+    g = gl.root_of_unity(n)
+    return pow(g, gl.P - 2, gl.P) if inverse else g
+
+
 @functools.lru_cache(maxsize=None)
 def twiddles(n_t: int, inverse: bool, device) -> torch.Tensor:
-    """ntt._twiddles(n_t) stage rows concatenated: stage s (half = 2^s)
-    starts at half - 1 and holds w_{2 half}^j for j < half."""
-    rows = _ref._twiddles(n_t, inverse)
-    flat = np.concatenate(rows) if rows else np.zeros(0, np.uint64)
-    return gl.from_u64(flat, device)
+    """Stage rows concatenated: stage s (half = 2^s) starts at half - 1 and
+    holds w_{2 half}^j for j < half."""
+    g = _root(n_t, inverse)
+    rows = []
+    m = 2
+    while m <= n_t:
+        rows.append(gl.powers(gl.const(pow(g, n_t // m, gl.P), (), device), m // 2))
+        m *= 2
+    return torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _bitrev(n_t: int, device) -> torch.Tensor:
-    return torch.from_numpy(_ref._bitrev(n_t)).to(device)
+    bits = n_t.bit_length() - 1
+    idx = torch.arange(n_t, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
 
 
 @functools.lru_cache(maxsize=None)
 def four_step_T(n: int, inverse: bool, device) -> torch.Tensor:
     """T[k1, j2] = w_n^(+-k1 j2), [n1, n2]; the inverse's 1/n folded in."""
-    T = gl.from_pair(*_ref._four_step_T(n, inverse), device)
+    n1, n2 = _split2(n)
+    col = gl.powers(gl.const(_root(n, inverse), (), device), n1)     # w^k1
+    T = gl.powers(col, n2)                                          # [n1, n2]
     return gl.mul(T, pow(n, gl.P - 2, gl.P)) if inverse else T
 
 
@@ -97,7 +120,7 @@ sub_ntt.launches = 0
 
 
 def _four_step(sub, x, n: int, inverse: bool, pre, post):
-    n1, n2 = _ref._split2(n)
+    n1, n2 = _split2(n)
     lead, k = x.shape[:-1], x.shape[-1]
     assert k % n2 == 0, (k, n2)
     rows_in = k // n2

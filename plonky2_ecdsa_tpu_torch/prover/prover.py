@@ -4,32 +4,66 @@ Counterpart of ``plonky2_ecdsa_tpu.prover.prover``: ``prove_core`` mirrors the
 reference's prove_core (prover.py:458-657) stage by stage, with the same
 ``stop_after`` knobs, and ``make_prover`` its make_jit_prover (prover.py:855)
 with the production ``run_vals`` path: the tape's compact value table goes
-up, the wires are expanded on the device, and the proof comes back as the
-reference's ``Proof`` of numpy (lo, hi) u32 pairs.  The host helpers
-(witness scatter maps, narrow-value classification, opening layout) are the
-reference's own.  Field arithmetic is exact, so for the same witness the
-proof equals the reference's leaf for leaf.
+up, the wires are expanded on the device, and the proof comes back as a host
+``Proof`` of numpy u64 arrays (extension values as (c0, c1) tuples).  Field
+arithmetic is exact, so for the same witness the proof equals the
+reference's value for value.
 """
 
 from __future__ import annotations
 
+import hashlib
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from plonky2_ecdsa_tpu.circuit.gates import PublicInputGate
-from plonky2_ecdsa_tpu.prover import fri as _ref_fri
-from plonky2_ecdsa_tpu.prover import prover as _ref
-from plonky2_ecdsa_tpu.prover.challenger import GRIND_EXHAUSTED
-
 from ..circuit.algebra import TorchAlgebra
+from ..circuit.gates import PublicInputGate
 from ..fields import goldilocks as gl
 from ..hash import merkle
 from . import fri, ntt
-from .challenger import Challenger
-from .data import Backend, as_device, backend_from_circuit_data
+from .challenger import GRIND_EXHAUSTED, Challenger
+from .data import Backend, CircuitData
 
-OpeningLayout = _ref.OpeningLayout
-Proof = _ref.Proof
+
+@dataclass
+class OpeningLayout:
+    """Canonical polynomial order shared by the openings and the FRI reduction."""
+    num_fixed: int
+    num_wires: int
+    num_zs_partials: int
+    num_quotient: int
+
+    @property
+    def total(self):
+        return self.num_fixed + self.num_wires + self.num_zs_partials + self.num_quotient
+
+    def slices(self):
+        o = 0
+        out = {}
+        for name, k in [("fixed", self.num_fixed), ("wires", self.num_wires),
+                        ("zs_partials", self.num_zs_partials), ("quotient", self.num_quotient)]:
+            out[name] = slice(o, o + k)
+            o += k
+        return out
+
+
+@dataclass
+class Proof:
+    """Device form (prove_core): int64 tensors.  Host form (to_host): numpy
+    u64 arrays, extension values as (c0, c1) tuples."""
+    pis: object              # [B, npis]
+    wires_cap: object        # [B, C, 4]
+    zs_cap: object
+    quotient_cap: object
+    openings0: tuple         # ext [B, layout.total] (everything at zeta)
+    openings1: tuple         # ext [B, len(z_idx)] (Z polys at g*zeta)
+    fri_proof: fri.FriProof
+    initial_leaves: dict     # tree name -> [B, Q, npolys]
+    initial_paths: dict      # tree name -> [B, Q, depth, 4]
+    layout: OpeningLayout
+
 
 # Domain points per pass of the quotient and the FRI reduced polynomial:
 # bounds the [B, polys, chunk] temporaries (about 1.6 GiB at B=32).
@@ -325,7 +359,7 @@ STOP_AFTER = ("commit", "challenges", "zs_vals", "zs", "quotient", "openings", "
 
 def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None):
     """(wires [B, W, n], PI polys [B, K, n], PI values [B, npis]) int64 on
-    the backend's device -> Proof of int64 tensors (see to_reference_proof).
+    the backend's device -> Proof of int64 tensors (see to_host).
     stop_after: one of STOP_AFTER, to compare one stage with the reference."""
     assert stop_after in (None,) + STOP_AFTER, stop_after
     cfg = data.circuit.config
@@ -441,39 +475,41 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None)
 
 
 # ---------------------------------------------------------------------------
-# device proof -> the reference's Proof (numpy (lo, hi) u32 pairs)
+# device proof -> host proof
 # ---------------------------------------------------------------------------
 
-def _ext_pair(e):
-    return (gl.to_pair(e[0]), gl.to_pair(e[1]))
+def _map_leaves(fn, x):
+    """fn over every array of a nesting of tuples, lists and dicts."""
+    if isinstance(x, tuple):
+        return tuple(_map_leaves(fn, v) for v in x)
+    if isinstance(x, list):
+        return [_map_leaves(fn, v) for v in x]
+    if isinstance(x, dict):
+        return {k: _map_leaves(fn, v) for k, v in x.items()}
+    return None if x is None else fn(x)
 
 
-def to_reference_proof(p: Proof, pis: np.ndarray) -> Proof:
-    """A proof of device tensors -> the reference's host Proof: (lo, hi) u32
-    leaves, indices int32, pis u64."""
+def to_host(p: Proof, pis: np.ndarray) -> Proof:
+    """A proof of device tensors -> host Proof: numpy u64 everywhere, the
+    query indices int64."""
+    def h(x):
+        return _map_leaves(gl.to_u64, x)
+
     fp = p.fri_proof
-    pw = fp.pow_witness
     return Proof(
-        pis=np.asarray(pis, dtype=np.uint64),
-        wires_cap=gl.to_pair(p.wires_cap), zs_cap=gl.to_pair(p.zs_cap),
-        quotient_cap=gl.to_pair(p.quotient_cap),
-        openings0=_ext_pair(p.openings0), openings1=_ext_pair(p.openings1),
-        fri_proof=_ref_fri.FriProof(
-            caps=[gl.to_pair(c) for c in fp.caps],
-            final_coeffs=_ext_pair(fp.final_coeffs),
-            indices=fp.indices.cpu().numpy().astype(np.int32),
-            layer_leaves=[gl.to_pair(x) for x in fp.layer_leaves],
-            layer_paths=[gl.to_pair(x) for x in fp.layer_paths],
-            pow_witness=None if pw is None else gl.to_pair(pw)),
-        initial_leaves={k: gl.to_pair(v) for k, v in p.initial_leaves.items()},
-        initial_paths={k: gl.to_pair(v) for k, v in p.initial_paths.items()},
-        layout=p.layout)
+        pis=np.asarray(pis, dtype=np.uint64), wires_cap=h(p.wires_cap), zs_cap=h(p.zs_cap),
+        quotient_cap=h(p.quotient_cap), openings0=h(p.openings0), openings1=h(p.openings1),
+        fri_proof=fri.FriProof(
+            caps=h(fp.caps), final_coeffs=h(fp.final_coeffs),
+            indices=fp.indices.cpu().numpy(), layer_leaves=h(fp.layer_leaves),
+            layer_paths=h(fp.layer_paths), pow_witness=h(fp.pow_witness)),
+        initial_leaves=h(p.initial_leaves), initial_paths=h(p.initial_paths), layout=p.layout)
 
 
 def check_grind(proof: Proof):
     """Raise if any lane's PoW grind exhausted its candidates."""
     pw = proof.fri_proof.pow_witness
-    if pw is not None and np.any(np.asarray(pw[0]) == np.uint32(GRIND_EXHAUSTED)):
+    if pw is not None and np.any(np.asarray(pw) == np.uint64(GRIND_EXHAUSTED)):
         raise RuntimeError("PoW grind exhausted candidate space")
 
 
@@ -501,6 +537,18 @@ def proof_leaves(proof: Proof):
     return out
 
 
+def proof_digest(proof: Proof, lane: int | None = None) -> str:
+    """sha256 over the leaves of a host Proof in proof_leaves order (name,
+    then the little-endian bytes); with `lane`, over that batch lane alone."""
+    h = hashlib.sha256()
+    for name, x in proof_leaves(proof):
+        if lane is not None:
+            x = x[lane]
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(x.astype("<i8" if x.dtype.kind == "i" else "<u8")).tobytes())
+    return h.hexdigest()
+
+
 def first_difference(a: Proof, b: Proof):
     """None if the two host proofs agree leaf for leaf (values, shapes and
     dtypes), else the name of the first leaf that differs."""
@@ -517,19 +565,112 @@ def first_difference(a: Proof, b: Proof):
 # entry points
 # ---------------------------------------------------------------------------
 
-def _inputs_to_device(data, W, pis, device):
-    wires_pair, pi_pair, _pis_pair = _ref.host_prep(data, W, pis)
-    return (gl.from_pair(*wires_pair, device), gl.from_pair(*pi_pair, device),
-            gl.from_u64(pis, device))
+def host_prep(data: CircuitData, W: np.ndarray, pis: np.ndarray):
+    """Witness [num_wires, n, B] u64 and PIs [B, npis] u64 -> (wires
+    [B, wires, n], PI polynomial values on H [B, K, n]) u64."""
+    circuit = data.circuit
+    n = data.n
+    B = W.shape[-1]
+    wires = np.ascontiguousarray(np.moveaxis(W, -1, 0))
+    K = circuit.pi.num_cols
+    pi_vals = np.zeros((B, K, n), np.uint64)
+    for blk, row in enumerate(circuit.pi.rows):
+        for j in range(K):
+            idx = blk * K + j
+            if idx < circuit.pi.count:
+                pi_vals[:, j, row] = pis[:, idx]
+    return wires, pi_vals
 
 
-def prove(data, W, pis: np.ndarray, device="cpu") -> Proof:
-    """W: witness [num_wires, n, B] u64 (host); pis [B, npis] u64 -> host Proof."""
-    device = as_device(device)
-    bk = backend_from_circuit_data(data, device)
-    proof = to_reference_proof(prove_core(data, bk, *_inputs_to_device(data, W, pis, device)), pis)
+def _inputs_to_device(data, W, pis):
+    wires, pi_vals = host_prep(data, W, pis)
+    dev = data.device
+    return gl.from_u64(wires, dev), gl.from_u64(pi_vals, dev), gl.from_u64(pis, dev)
+
+
+def prove(data: CircuitData, W, pis: np.ndarray) -> Proof:
+    """W: witness [num_wires, n, B] u64 (host); pis [B, npis] u64 -> host
+    Proof, computed on the data's device."""
+    proof = to_host(prove_core(data, Backend(data), *_inputs_to_device(data, W, pis)), pis)
     check_grind(proof)
     return proof
+
+
+# Tape-op output roles whose values are structurally < 2^32 (29-bit limbs,
+# booleans, small in-gate carries, lookup multiplicities).  They go up as one
+# u32 plane; every claim is checked again at dispatch (_vals_split).
+_NARROW_ROLES = {
+    "mul_nn": ("q", "r"),            # 29-bit limbs (carries are 34-bit: wide)
+    "inv_nn": ("inv", "q"),
+    "add_nn": ("s", "ovf", "c"),
+    "sub_nn": ("s", "ovf", "c"),
+    "add_many_nn": ("s", "ovf"),     # its in-gate carries can exceed 32 bits
+    "cmp_const": ("d", "brw", "le"),
+    "split": ("bits",),
+    "is_equal": ("eq",),
+    "lookup_mult": ("m_ts",),
+    "range_lookup": ("limbs",),      # derived on the device (not uploaded)
+    "random_access": ("bits",),
+}
+
+
+def _narrow_mask(circuit) -> np.ndarray:
+    """[num_targets] bool: True where the value-table slot is statically
+    known < 2^32 (by tape-op semantics or constant value)."""
+    mask = np.zeros(circuit.num_targets, bool)
+    rm = circuit.read_map
+    for op in circuit.tape:
+        if op.rec is None:
+            continue
+        kind, payload = op.rec
+        for role in _NARROW_ROLES.get(kind, ()):
+            if role in payload:
+                mask[rm[np.ravel(np.asarray(payload[role], dtype=np.int64))]] = True
+    for tid, v in circuit.constant_values.items():
+        if int(v) < 1 << 32:
+            mask[rm[tid]] = True
+    return mask
+
+
+def _scatter_maps(data: CircuitData):
+    """Static gather maps that realise the witness scatter on the device.
+
+    The tape's value table is far smaller than the wire tensor [B, wires, n],
+    so it goes up compacted and is gathered on the device.  Only table rows
+    the device gathers are kept (wire positions, PI positions, PI values);
+    targets in circuit.derived_tids (range-lookup limbs) are left out and
+    derived from their value wires after the gather.  Kept slots are ordered
+    [narrow | wide]; the last compact index is a zero slot for unpopulated
+    cells."""
+    circuit = data.circuit
+    cfg = circuit.config
+    n = data.n
+    T = circuit.num_targets
+    keep_mask = np.zeros(T, bool)
+    keep_mask[circuit.pos_tids] = True
+    keep_mask[circuit.pi_tids] = True
+    keep_mask[circuit.derived_tids] = False
+    narrow = _narrow_mask(circuit)
+    keep_ids = np.concatenate([np.nonzero(keep_mask & narrow)[0],
+                               np.nonzero(keep_mask & ~narrow)[0]])
+    num_narrow = int((keep_mask & narrow).sum())
+    Kc = len(keep_ids)
+    new_of = np.full(T + 1, Kc, np.int64)  # default -> zero slot
+    new_of[keep_ids] = np.arange(Kc)
+    imap = np.full(cfg.num_wires * n, Kc, np.int64)
+    imap[circuit.pos_cols * n + circuit.pos_rows] = new_of[circuit.pos_tids]
+    K = circuit.pi.num_cols
+    imap_pi = np.full(K * n, Kc, np.int64)
+    for blk, row in enumerate(circuit.pi.rows):
+        for j in range(K):
+            idx = blk * K + j
+            if idx < circuit.pi.count:
+                imap_pi[j * n + row] = new_of[circuit.pi_tids[idx]]
+    pit = new_of[circuit.pi_tids]
+    layouts = sorted(circuit.range_layouts.items())  # [(bits, (V, nl, lb, rows))]
+    rows_arrays = [np.asarray(rows, np.int64) for _, (_V, _nl, _lb, rows) in layouts]
+    layout_meta = tuple((bits, V, nl, lb) for bits, (V, nl, lb, _r) in layouts)
+    return imap, imap_pi, pit, keep_ids, num_narrow, rows_arrays, layout_meta
 
 
 class NarrowMisclassification(ValueError):
@@ -543,20 +684,19 @@ class Prover:
     compacted table goes up (a u32 plane for the values statically known
     below 2^32, u64 for the rest, range-lookup limbs dropped), the wire,
     PI-polynomial and PI tensors are gathered and the limbs re-derived on the
-    device, and the proof comes back as the reference's host Proof."""
+    device, and the proof comes back as a host Proof."""
 
-    def __init__(self, data, device):
+    def __init__(self, data: CircuitData):
         self.data = data
-        self.device = as_device(device)
-        self.backend = backend_from_circuit_data(data, self.device)
+        self.device = dev = data.device
+        self.backend = Backend(data)
         (imap, imap_pi, pit, keep_ids, num_narrow, rows_arrays,
-         self._layout_meta) = _ref._scatter_maps(data)
+         self._layout_meta) = _scatter_maps(data)
         self._keep_n, self._keep_w = keep_ids[:num_narrow], keep_ids[num_narrow:]
-        dev = self.device
-        self._imap = torch.from_numpy(imap.astype(np.int64)).to(dev)
-        self._imap_pi = torch.from_numpy(imap_pi.astype(np.int64)).to(dev)
-        self._pit = torch.from_numpy(pit.astype(np.int64)).to(dev)
-        self._rows = [torch.from_numpy(r.astype(np.int64)).to(dev) for r in rows_arrays]
+        self._imap = torch.from_numpy(imap).to(dev)
+        self._imap_pi = torch.from_numpy(imap_pi).to(dev)
+        self._pit = torch.from_numpy(pit).to(dev)
+        self._rows = [torch.from_numpy(r).to(dev) for r in rows_arrays]
 
     def _vals_split(self, vals: np.ndarray):
         """[T, B] u64 -> (narrow u32 [B, Tn], wide u64 [B, Tw + 1]); the last
@@ -603,7 +743,7 @@ class Prover:
 
     def collect(self, handle) -> Proof:
         proof, pis = handle
-        proof = to_reference_proof(proof, pis)
+        proof = to_host(proof, pis)
         check_grind(proof)
         return proof
 
@@ -611,5 +751,5 @@ class Prover:
         return self.collect(self.dispatch_vals(vals, pis))
 
 
-def make_prover(data, device) -> Prover:
-    return Prover(data, device)
+def make_prover(data: CircuitData) -> Prover:
+    return Prover(data)

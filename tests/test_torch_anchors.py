@@ -1,0 +1,126 @@
+"""Frozen values taken from the reference package, against which the port is
+held where the reference cannot run (the GPU smoke run imports the port
+alone): ``plonky2_ecdsa_tpu_torch/vectors/anchors.json``.
+
+    JAX_PLATFORMS=cpu python tests/test_torch_anchors.py --write [--skip-proof]
+
+recomputes the file with the reference's numpy path (a quarter of an hour:
+the secp256k1 fixed commit and one B=1 proof in numpy).  The tests here check
+that the file holds what the reference gives where that is quick (the demo
+proof), and that the port on the CPU meets the same values."""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+from plonky2_ecdsa_tpu import api as ref_api  # noqa: E402
+from plonky2_ecdsa_tpu.circuit import examples as ref_examples  # noqa: E402
+from plonky2_ecdsa_tpu.curve import native as ref_cn  # noqa: E402
+from plonky2_ecdsa_tpu.prover import data as ref_data_mod  # noqa: E402
+from plonky2_ecdsa_tpu.prover import prover as ref_prover  # noqa: E402
+from plonky2_ecdsa_tpu_torch import api  # noqa: E402
+from plonky2_ecdsa_tpu_torch.circuit.examples import (small_demo_circuit,  # noqa: E402
+                                                      small_demo_witness)
+from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl  # noqa: E402
+from plonky2_ecdsa_tpu_torch.prover import prover  # noqa: E402
+from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data  # noqa: E402
+from test_torch_bridge import from_reference_proof, pair_to_u64  # noqa: E402
+
+ANCHORS = os.path.join(ROOT, "plonky2_ecdsa_tpu_torch", "vectors", "anchors.json")
+DEMO_BATCH = 2
+SEED = 3
+
+
+def _hex(a) -> list:
+    return [f"{int(v):016x}" for v in np.asarray(a, np.uint64).ravel()]
+
+
+def reference_demo_digest() -> str:
+    """sha256 over the leaves of the reference's numpy proof of the demo
+    circuit at B=2 (the demo witness is seeded by the batch size)."""
+    c = ref_examples.small_demo_circuit().build()
+    os.environ["PLONKY2_TPU_HOST_BUILD"] = "1"
+    data = ref_data_mod.build_circuit_data(c)
+    W, pis = ref_examples.small_demo_witness(c, DEMO_BATCH)
+    return prover.proof_digest(from_reference_proof(ref_prover.prove(data, W, pis)))
+
+
+def make_anchors(with_proof: bool = True) -> dict:
+    """Every frozen value, from the reference's numpy path."""
+    os.environ["PLONKY2_TPU_HOST_BUILD"] = "1"
+    out = {"demo_batch": DEMO_BATCH, "seed": SEED,
+           "demo_proof_sha256": reference_demo_digest()}
+    t0 = time.time()
+    system = ref_api.EcdsaProverSystem(ref_cn.SECP256K1)
+    data = system.data
+    out["secp256k1_n"] = data.n
+    out["secp256k1_fixed_cap"] = _hex(pair_to_u64(data.fixed_tree.cap))
+    print(f"fixed commit: {time.time() - t0:.1f} s", flush=True)
+    stmts = ref_api.random_statements(ref_cn.SECP256K1, 1, seed=SEED)
+    W, pis = system.witness(stmts)
+    wires, pi, pis_pair = ref_prover.host_prep(data, W, pis)
+    t0 = time.time()
+    cap = ref_prover.prove_core(data, ref_prover.Backend(data, np), wires, pi, pis_pair, np,
+                                stop_after="commit")
+    out["secp256k1_lane0_wires_cap"] = _hex(pair_to_u64(cap)[0])
+    print(f"wires commit B=1: {time.time() - t0:.1f} s", flush=True)
+    if with_proof:
+        t0 = time.time()
+        proof = from_reference_proof(ref_prover.prove(data, W, pis))
+        out["secp256k1_lane0_proof_sha256"] = prover.proof_digest(proof, lane=0)
+        print(f"numpy prove B=1: {time.time() - t0:.1f} s", flush=True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def anchors():
+    with open(ANCHORS) as f:
+        return json.load(f)
+
+
+def test_anchor_file_is_whole(anchors):
+    assert anchors["demo_batch"] == DEMO_BATCH and anchors["seed"] == SEED
+    assert anchors["secp256k1_n"] == 1 << 13
+    assert len(anchors["demo_proof_sha256"]) == 64
+    for name in ("secp256k1_fixed_cap", "secp256k1_lane0_wires_cap"):
+        words = [int(v, 16) for v in anchors[name]]
+        assert len(words) == 4 << 4 and all(0 <= w < gl.P for w in words), name   # cap_height 4
+    assert len(anchors.get("secp256k1_lane0_proof_sha256", "0" * 64)) == 64
+
+
+def test_demo_anchor_is_the_references_proof(anchors):
+    assert reference_demo_digest() == anchors["demo_proof_sha256"]
+
+
+def test_port_demo_proof_meets_the_anchor(anchors):
+    c = small_demo_circuit().build()
+    data = build_circuit_data(c, "cpu")
+    proof = prover.prove(data, *small_demo_witness(c, DEMO_BATCH))
+    assert prover.proof_digest(proof) == anchors["demo_proof_sha256"]
+    assert prover.proof_digest(proof, lane=0) != prover.proof_digest(proof, lane=1)
+
+
+def test_port_fixed_commit_meets_the_anchor(anchors):
+    """The port's own secp256k1 build and fixed commit, on the CPU through the
+    plain kernels, give the reference's fixed cap."""
+    system = api.EcdsaProverSystem(api.SECP256K1, device="cpu")
+    assert _hex(gl.to_u64(system.data.fixed_tree.cap)) == anchors["secp256k1_fixed_cap"]
+
+
+if __name__ == "__main__":
+    if "--write" not in sys.argv:
+        sys.exit(__doc__)
+    made = make_anchors(with_proof="--skip-proof" not in sys.argv)
+    os.makedirs(os.path.dirname(ANCHORS), exist_ok=True)
+    with open(ANCHORS, "w") as f:
+        json.dump(made, f, indent=1)
+        f.write("\n")
+    print(f"wrote {ANCHORS}")

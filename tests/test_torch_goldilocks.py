@@ -124,10 +124,11 @@ def test_boundary_conversions_round_trip():
     a, _ = _operands(9)
     t = gl.from_u64(a)
     assert np.array_equal(gl.to_u64(t), a)
-    lo, hi = gl.to_pair(t)
-    assert lo.dtype == np.uint32 and hi.dtype == np.uint32
-    assert np.array_equal(ref.to_u64(lo, hi), a)
-    assert np.array_equal(gl.to_u64(gl.from_pair(lo, hi)), a)
+    lo, hi = ref.from_u64(gl.to_u64(t))
+    assert np.array_equal(gl.to_u64(gl.from_u64(ref.to_u64(lo, hi))), a)
+    assert gl.from_u64(np.uint64(7)).shape == () and gl.to_u64(gl.const(7)).shape == ()
+    a[0] ^= np.uint64(1)
+    assert int(gl.to_u64(t)[0]) != int(a[0])       # from_u64 copies its input
     assert [int(v) for v in gl.to_u64(gl.from_ints([P + 3, -1]))] == [3, P - 1]
 
 

@@ -72,7 +72,21 @@ def test_frozen_preflight_digests(key):
         out = poseidon.permute_plain(gl.from_u64(v))
     else:
         out = _batch_inverse_axis1(gl.from_u64(bv))
-    assert _digest(*gl.to_pair(out)) == frozen[key]
+    assert _digest(*ref_gl.from_u64(gl.to_u64(out))) == frozen[key]
+
+
+def test_own_round_constants_equal_vectors_and_reference():
+    """The port derives its constants itself: they equal the frozen vectors
+    and the reference's tables."""
+    with open(os.path.join(os.path.dirname(__file__), "vectors", "poseidon_constants.json")) as f:
+        frozen = json.load(f)
+    flat = [int(v) for v in frozen["round_constants"]]
+    assert poseidon._gen_round_constants() == flat == ref_ps.ROUND_CONSTANTS
+    assert list(poseidon.INTERNAL_DIAG) == [int(v) for v in frozen["internal_diag"]]
+    assert poseidon.INTERNAL_DIAG == ref_ps.INTERNAL_DIAG
+    assert np.array_equal(poseidon.RC_TABLE, ref_ps._RC_TABLE)
+    assert (poseidon.WIDTH, poseidon.RATE, poseidon.HALF_FULL_ROUNDS, poseidon.PARTIAL_ROUNDS) == \
+        (ref_ps.WIDTH, ref_ps.RATE, ref_ps.HALF_FULL_ROUNDS, ref_ps.PARTIAL_ROUNDS)
 
 
 def test_batch_inverse_matches_reference():

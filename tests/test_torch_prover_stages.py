@@ -1,36 +1,47 @@
-"""Stage by stage: the port's prove_core against the reference's numpy
+"""Stage by stage: the port's prove_core (on its own circuit, witness and
+fixed data) against the reference's numpy
 prove_core at every stop_after knob (tolerance 0), and the domain-chunked
 quotient and reduced polynomial against the unchunked reference."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig, FriConfig
-from plonky2_ecdsa_tpu.circuit.examples import small_demo_circuit, small_demo_witness
+from plonky2_ecdsa_tpu.circuit import examples as ref_examples
+from plonky2_ecdsa_tpu.circuit.config import CircuitConfig as RefConfig
+from plonky2_ecdsa_tpu.circuit.config import FriConfig as RefFri
 from plonky2_ecdsa_tpu.fields import goldilocks as ref_gl
+from plonky2_ecdsa_tpu.prover import data as ref_data_mod
 from plonky2_ecdsa_tpu.prover import prover as ref_prover
+from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig, FriConfig
+from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_demo_witness
 from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
 from plonky2_ecdsa_tpu_torch.prover import prover
 from plonky2_ecdsa_tpu_torch.prover.data import Backend, build_circuit_data
 
-FOLDING = CircuitConfig(range_lookup_limb_bits=3, fri=FriConfig(
-    rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=8,
-    final_poly_max_degree_bits=2))
+_FRI = dict(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=8,
+            final_poly_max_degree_bits=2)
+FOLDING = CircuitConfig(range_lookup_limb_bits=3, fri=FriConfig(**_FRI))
+REF_FOLDING = RefConfig(range_lookup_limb_bits=3, fri=RefFri(**_FRI))
 
 
 @pytest.fixture(scope="module")
 def case():
     c = small_demo_circuit(FOLDING).build()
-    data = build_circuit_data(c)
+    data = build_circuit_data(c, "cpu")
     W, pis = small_demo_witness(c, batch=2)
-    ref_in = ref_prover.host_prep(data, W, pis)
-    return data, W, pis, ref_in, ref_prover.Backend(data, np), Backend(data, "cpu")
+    ref_c = ref_examples.small_demo_circuit(REF_FOLDING).build()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PLONKY2_TPU_HOST_BUILD", "1")
+        ref_data = ref_data_mod.build_circuit_data(ref_c)
+    ref_W, ref_pis = ref_examples.small_demo_witness(ref_c, batch=2)
+    ref_in = ref_prover.host_prep(ref_data, ref_W, ref_pis)
+    return data, W, pis, ref_data, ref_in, ref_prover.Backend(ref_data, np), Backend(data)
 
 
 def _run_both(case, stop_after):
-    data, W, pis, ref_in, ref_bk, bk = case
-    want = ref_prover.prove_core(data, ref_bk, *ref_in, np, stop_after=stop_after)
-    got = prover.prove_core(data, bk, *prover._inputs_to_device(data, W, pis, "cpu"),
+    data, W, pis, ref_data, ref_in, ref_bk, bk = case
+    want = ref_prover.prove_core(ref_data, ref_bk, *ref_in, np, stop_after=stop_after)
+    got = prover.prove_core(data, bk, *prover._inputs_to_device(data, W, pis),
                             stop_after=stop_after)
     return got, want
 
