@@ -6,7 +6,10 @@
 From the repository root, on a machine with one CUDA device:
   1. builds the port's CUDA kernels from plonky2_ecdsa_tpu_torch/csrc (and,
      beside them, the C++ witness library and the count-only cubin);
-  2. holds each kernel against its plain torch version on the card, bit for
+  2. runs the kernels' field primitives (lazy multiply, 96-bit layer sums,
+     folds, the final canonicalisation) on directed edge operands and random
+     ones against Python integers; then holds each kernel against its plain
+     torch version on the card, bit for
      bit, at the shapes of the main path, times both, and works out the least
      time the card could take for the same work (its bound: the bytes, or the
      integer operations the arithmetic needs whatever the code) and, beside
@@ -135,16 +138,46 @@ def sass_instruction_counts() -> dict:
     dump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([dump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
     os.remove(cubin)
-    names = ("permute_unrolled", "grind_candidate", "probe_base", "probe_mul", "probe_butterfly")
+    names = ("permute_unrolled", "grind_candidate", "probe_base", "probe_mul", "probe_mul_lazy",
+             "probe_butterfly")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = next((k for k in names if k in m.group(1)), None)
+            name = m.group(1) if m.group(1) in names else None
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[name] = counts.get(name, 0) + 1
     assert set(counts) == set(names), f"count-only kernels missing from the SASS: {counts}"
     return counts
+
+
+def check_field(dev):
+    """The kernels' field primitives against Python integers, tolerance 0:
+    every pair of the directed edge operands and 2^16 random pairs."""
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
+    from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
+    import field_check_vectors
+
+    a, b = field_check_vectors.operands(1 << 16, SEED)
+    got = gl.to_u64(poseidon_cuda.field_check(gl.from_u64(a, dev), gl.from_u64(b, dev)))
+    torch.cuda.synchronize()
+    wrong = 0
+    for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):
+        lazy, exact = field_check_vectors.expected(x, y)
+        col = got[:, i].tolist()
+        want = lazy + exact
+        have = [v % gl.P for v in col[:len(lazy)]] + col[len(lazy):]
+        if have != want:
+            wrong += 1
+            if wrong <= 3:
+                print(f"field check: operands {x:#x}, {y:#x}: rows "
+                      f"{[r for r in range(len(want)) if have[r] != want[r]]} differ: kernel "
+                      f"{[hex(v) for v in col]}, expected {[hex(v) for v in want]}")
+    directed = len(a) - (1 << 16)
+    print(f"field check: mul_lazy, sqr_lazy, fold96, add_lazy, sub_lazy (modulo p), canon, "
+          f"mad96, quad96, mul (exact) on {directed} directed pairs and {1 << 16} random pairs "
+          f"against Python integers: {wrong} pairs wrong (tolerance 0)")
+    assert wrong == 0, "the kernels' field arithmetic is wrong"
 
 
 def check_kernels(dev, card, sass):
@@ -159,7 +192,8 @@ def check_kernels(dev, card, sass):
     per_butterfly = sass["probe_butterfly"] - sass["probe_base"]
     print(f"integer instructions the arithmetic needs (the bound) / SASS instructions this "
           f"code executes per thread: one permutation {PERMUTE_OPS} / {per_perm}, one grind "
-          f"candidate {GRIND_OPS} / {per_cand}, one modular multiply {MUL_OPS} / {per_mul}, one "
+          f"candidate {GRIND_OPS} / {per_cand}, one modular multiply {MUL_OPS} / {per_mul} "
+          f"canonical, {sass['probe_mul_lazy'] - sass['probe_base']} lazy, one "
           f"butterfly {BUTTERFLY_OPS} / {per_butterfly}; issue rate {card.sms} SMs x "
           f"{SCHED_LANES_PER_CLK_SM} lanes x {card.clock_hz / 1e6:.0f} MHz = "
           f"{card.instr_per_s:.4g} per second; memory {HBM_BYTES_PER_S:.3g} B/s")
@@ -186,9 +220,52 @@ def check_kernels(dev, card, sass):
                  err, ms, plain_ms, 2 * 12 * M * 8, M * PERMUTE_OPS, M * per_perm)
     perm_rate = M / (ms * 1e-3)
     print(f"poseidon2 permute [12, 2^20]: max_abs_err={err} (tolerance 0), kernel {ms:.3f} ms "
-          f"({perm_rate:.4g} permutations/s), plain {plain_ms:.3f} ms, {bounds}, "
-          f"no library call computes this  ({card.line})")
+          f"({perm_rate:.4g} permutations/s), plain {plain_ms:.3f} ms, {bounds}, no library call computes this  ({card.line})")
     assert err == 0.0, "poseidon2 permute disagrees with the plain version"
+
+    # kernel 1b: the leaf sponge.  The wires commit's (poly-major, 128 columns
+    # at B=32, N=2^15: 16 absorptions a leaf), a width that is no multiple of
+    # 8, a leaf-major Merkle level of digest pairs, odd leaf-major rows, and
+    # hash_no_pad's stacked words
+    lde = random_field(rng, (BATCH, 128, 1 << 15), dev)
+    shapes = [("poly", lde), ("poly", random_field(rng, (BATCH, 20, 1 << 12), dev)),
+              ("leaf", random_field(rng, (BATCH, 1 << 14, 8), dev)),
+              ("leaf", random_field(rng, (3, 1000, 13), dev)),
+              ("stacked", random_field(rng, (5, BATCH, 42), dev))]
+    errs = []
+    for layout, t in shapes:
+        launches = poseidon_cuda.sponge.launches
+        got = poseidon_cuda.sponge(t, layout)
+        assert poseidon_cuda.sponge.launches == launches + 1, "a sponge is one launch"
+        errs.append(max_abs_err(got, poseidon_cuda.sponge_plain(t, layout)))
+        print(f"poseidon2 sponge {layout} {list(t.shape)}: max_abs_err={errs[-1]} (tolerance 0)")
+    err = max(errs)
+    assert err == 0.0, "poseidon2 sponge disagrees with the plain version"
+
+    def sponge_by_permutes():
+        """The path the sponge kernel replaced: one copy of the whole state
+        and one permute launch per 8 columns."""
+        state = torch.zeros((12, BATCH, 1 << 15), dtype=torch.int64, device=dev)
+        for off in range(0, 128, 8):
+            state = poseidon_cuda.permute(torch.cat([lde[:, off:off + 8].movedim(1, 0),
+                                                     state[8:]], 0))
+        return state[:4].movedim(0, -1)
+
+    assert max_abs_err(sponge_by_permutes().contiguous(), poseidon_cuda.sponge(lde, "poly")) == 0.0
+    ms = cuda_ms(lambda: poseidon_cuda.sponge(lde, "poly"), 10)
+    loop_ms = cuda_ms(sponge_by_permutes, 5)
+    plain_ms = cuda_ms(lambda: poseidon_cuda.sponge_plain(lde, "poly"), 1)
+    absorptions = M * (128 // 8)
+    bounds = row("poseidon2_sponge", "plonky2_ecdsa_tpu_torch/csrc/poseidon2.cu",
+                 "plonky2_ecdsa_tpu/hash/poseidon_pallas.py:118", poseidon_cuda.sponge,
+                 err, ms, plain_ms, lde.numel() * 8 + M * 4 * 8, absorptions * PERMUTE_OPS,
+                 absorptions * per_perm)
+    print(f"poseidon2 sponge, the wires leaves [{BATCH}, 128, 2^15] -> [{BATCH}, 2^15, 4] (2^20 "
+          f"leaves x 16 absorptions, ONE launch): kernel {ms:.3f} ms; the former path (16 "
+          f"copies of the state and 16 permute launches, with this build's permute kernel) "
+          f"{loop_ms:.3f} ms; plain {plain_ms:.3f} ms, {bounds}, no library call computes this  "
+          f"({card.line})")
+    del lde, shapes
 
     # kernel 2: the FRI grind, 32 distinct lanes at 16 bits; one lane alone;
     # exhaustion; and the cap edge around the largest witness
@@ -233,7 +310,7 @@ def check_kernels(dev, card, sass):
 
     # kernel 3: four-step transforms of the main path on [32, 8, n], plus the
     # single-pass transform of the FRI final polynomial
-    n, N = 1 << 13, 1 << 15
+    n, N, N17 = 1 << 13, 1 << 15, 1 << 17
     cases = []
     for size in (n, N):
         for inverse in (False, True):
@@ -243,19 +320,35 @@ def check_kernels(dev, card, sass):
                   False, ntt.coset_powers(N, False, dev)[:n], None))
     cases.append(("coset INTT 2^15 (post)", random_field(rng, (BATCH, 8, N), dev), N,
                   True, None, ntt.coset_powers(N, True, dev)))
+    # the next size up (split 256 x 512), at a smaller batch
+    cases.append(("ntt n=2^17 inverse=False", random_field(rng, (2, 3, N17), dev), N17,
+                  False, None, None))
+    cases.append(("ntt n=2^17 inverse=True", random_field(rng, (2, 3, N17), dev), N17,
+                  True, None, None))
+    cases.append(("coset LDE 2^15->2^17 (pre)", random_field(rng, (2, 3, N), dev), N17,
+                  False, ntt.coset_powers(N17, False, dev)[:N], None))
     errs = []
     for name, a, size, inverse, pre, post in cases:
         e = max_abs_err(ntt_cuda.four_step(a, size, inverse, pre, post),
                         ntt_cuda.four_step_plain(a, size, inverse, pre, post))
         errs.append(e)
-        print(f"sub_ntt four-step {name} [{BATCH}, 8]: max_abs_err={e} (tolerance 0)")
+        print(f"sub_ntt four-step {name} {list(a.shape[:-1])}: max_abs_err={e} (tolerance 0)")
     wires = random_field(rng, (BATCH, 128, n), dev)
     e = max_abs_err(ntt_cuda.four_step(wires, N, False, cases[4][4]),
                     ntt_cuda.four_step_plain(wires, N, False, cases[4][4]))
     errs.append(e)
+    wires_ms = cuda_ms(lambda: ntt_cuda.four_step(wires, N, False, cases[4][4]), 10)
     print(f"sub_ntt four-step coset LDE 2^13->2^15 (pre) [{BATCH}, 128] (the wires LDE): "
           f"max_abs_err={e} (tolerance 0)")
     del wires
+    ragged = random_field(rng, (3, 64, 40), dev)       # a ragged last tile, compact rows
+    scale = random_field(rng, (128, 40), dev)
+    for tr in (False, True):
+        e = max_abs_err(ntt_cuda.sub_ntt(ragged, 128, False, scale[:64], scale, tr),
+                        ntt_cuda.sub_ntt_plain(ragged, 128, False, scale[:64], scale, tr))
+        errs.append(e)
+        print(f"sub_ntt n_t=128 on [3, 64, 40] (ragged tile, compact rows, pre and post), "
+              f"transpose_out={tr}: max_abs_err={e} (tolerance 0)")
     small = random_field(rng, (2 * BATCH, 512, 1), dev)
     e = max_abs_err(ntt_cuda.sub_ntt(small, 512, True), ntt_cuda.sub_ntt_plain(small, 512, True))
     errs.append(e)
@@ -268,18 +361,30 @@ def check_kernels(dev, card, sass):
     # the transform as a function: input, coset powers, four-step twiddles and
     # stage twiddles read once, output written once; N/2 log2 N butterflies a
     # transform, one multiply per input (coset power) and per output (twiddle)
-    polys = BATCH * 8
     n1, n2 = ntt_cuda._split2(N)
-    nbytes = 8 * (polys * n + n + N + n1 + n2 + polys * N)
-    butterflies, scales = polys * (N // 2) * (N.bit_length() - 1), polys * (n + N)
+
+    def lde_work(polys):
+        """(bytes, needed operations, this code's instructions) of `polys` coset LDEs."""
+        nbytes = 8 * (polys * n + n + N + n1 + n2 + polys * N)
+        butterflies, scales = polys * (N // 2) * (N.bit_length() - 1), polys * (n + N)
+        return (nbytes, butterflies * BUTTERFLY_OPS + scales * MUL_OPS,
+                butterflies * per_butterfly + scales * per_mul)
+
+    nbytes, ops, instrs = lde_work(BATCH * 8)
     bounds = row("sub_ntt", "plonky2_ecdsa_tpu_torch/csrc/ntt.cu",
                  "plonky2_ecdsa_tpu/prover/ntt_pallas.py:181", ntt_cuda.sub_ntt,
-                 err, ms, plain_ms, nbytes, butterflies * BUTTERFLY_OPS + scales * MUL_OPS,
-                 butterflies * per_butterfly + scales * per_mul)
-    print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, 8] (two launches + transpose): kernel "
+                 err, ms, plain_ms, nbytes, ops, instrs)
+    print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, 8] (two launches, the first storing "
+          f"transposed; no copy between): kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {bounds} "
           f"({nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes), no library call computes this  "
           f"({card.line})")
+    nbytes, ops, instrs = lde_work(BATCH * 128)
+    wires_bound, wires_by = card.bound(nbytes, ops)
+    print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, 128] (the wires LDE): kernel {wires_ms:.3f} "
+          f"ms, bound {wires_bound:.3f} ms by {wires_by} ({card.issue_ms(ops):.3f} ms by "
+          f"operations, {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes), this code's issue "
+          f"slots {card.issue_ms(instrs):.3f} ms  ({card.line})")
     return rows
 
 
@@ -421,8 +526,10 @@ def main() -> int:
           f"{time.time() - t0:.1f} s: {_build.library_path()}  ({card.line})")
     for name, (regs, spill_st, spill_ld) in sorted(_build.kernel_resources().items()):
         print(f"ptxas: {name}: {regs} registers, {spill_st} + {spill_ld} bytes of spills")
+        assert spill_st == 0 and spill_ld == 0, f"{name} spills registers"
 
     anchors = load_anchors()
+    check_field(dev)
     rows = check_kernels(dev, card, sass)
     check_demo(dev, anchors)
     main_path(dev, card, rows, anchors)

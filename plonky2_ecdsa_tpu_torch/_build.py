@@ -31,6 +31,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "p2_set_constants": [_P, _P],
     "p2_permute": [_P, _P, _LL, _P],
+    "p2_sponge": [_P, _P, _LL, _LL, _I, _LL, _LL, _LL, _LL, _LL, _P],
+    "p2_field_check": [_P, _P, _P, _LL, _P],
     "p2_grind": [_P, _P, _I, _I, _LL, _P],
     "ntt_sub": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
 }

@@ -1,6 +1,14 @@
 // Goldilocks field GF(p), p = 2^64 - 2^32 + 1, on native u64 (device code).
 // Same reduction as plonky2_ecdsa_tpu/fields/goldilocks.py::_reduce128_u64:
-// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).  All results are canonical (< p).
+// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p).
+//
+// Two kinds of word.  A CANONICAL word is the value itself, < p: what
+// add/sub/mul return and what every kernel stores.  A LAZY word is any u64
+// congruent to the value: what mul_lazy, add_lazy, sub_lazy and fold96 return.
+// A chain of lazy operations is made canonical once, by canon(), where it
+// leaves the registers.  The carry chains are inline PTX (add.cc / addc /
+// subc); each chain is one asm statement, as the carry flag does not live
+// from one statement to the next.
 #pragma once
 
 #include <cstdint>
@@ -9,6 +17,14 @@ namespace gl {
 
 constexpr uint64_t P = 0xFFFFFFFF00000001ull;
 constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p; (x - p) mod 2^64 == x + EPS
+
+// A sum of words too large for a u64: lo + 2^64 hi.
+struct w96 {
+  uint64_t lo;
+  uint32_t hi;
+};
+
+__device__ __forceinline__ uint64_t canon(uint64_t x) { return x >= P ? x + EPS : x; }
 
 __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
   uint64_t s = a + b;
@@ -22,25 +38,89 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   return a < b ? d - EPS : d;
 }
 
-__device__ __forceinline__ uint64_t reduce128(uint64_t hi, uint64_t lo) {
-  uint64_t r2 = hi & EPS;
-  uint64_t r3 = hi >> 32;
-  uint64_t t = lo - r3;
-  if (lo < r3) t -= EPS;
-  uint64_t s = t + ((r2 << 32) - r2);
-  if (s < t) s += EPS;
-  return s >= P ? s + EPS : s;
+// a + b for a lazy a and any b <= 2^64 - 2^32 (a canonical word, or a product
+// r * EPS with r < 2^32).  On carry the true sum is s + 2^64 == s + EPS, and
+// s <= a + b - 2^64 <= 2^64 - 2^32 - 1, so adding EPS cannot carry again.
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  uint64_t s;
+  uint32_t c;  // the carry, 0 or 1
+  asm("add.cc.u64 %0, %2, %3;\n\t"
+      "addc.u32 %1, %4, %4;"
+      : "=l"(s), "=r"(c)
+      : "l"(a), "l"(b), "r"(0u));
+  return s + (uint64_t)c * (uint32_t)EPS;   // one multiply-add
 }
 
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
-  return reduce128(__umul64hi(a, b), a * b);
+// a - b for a lazy a and any b <= 2^64 - 2^32.  On borrow the wrapped value
+// a - b + 2^64 is EPS too much and at least 2^32, so EPS comes off without a
+// second borrow.
+__device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
+  uint64_t d;
+  uint32_t m;  // all-ones (== EPS) on borrow
+  asm("sub.cc.u64 %0, %2, %3;\n\t"
+      "subc.u32 %1, %4, %4;"
+      : "=l"(d), "=r"(m)
+      : "l"(a), "l"(b), "r"(0u));
+  return d - m;
 }
 
-// (qlo + 2^32 qhi) mod p for non-negative half-sums below 2^63.
-__device__ __forceinline__ uint64_t recombine(uint64_t qlo, uint64_t qhi) {
-  uint64_t lo = qlo + (qhi << 32);
-  uint64_t top = (((qlo >> 32) + (qhi & EPS)) >> 32) + (qhi >> 32);
-  return reduce128(top, lo);
+// a + b on 96 bits; the caller's range argument keeps the sum below 2^96.
+__device__ __forceinline__ w96 add96(w96 a, w96 b) {
+  w96 r;
+  asm("add.cc.u64 %0, %2, %4;\n\t"
+      "addc.u32 %1, %3, %5;"
+      : "=&l"(r.lo), "=r"(r.hi)
+      : "l"(a.lo), "r"(a.hi), "l"(b.lo), "r"(b.hi));
+  return r;
+}
+
+__device__ __forceinline__ w96 add96(w96 a, uint64_t b) { return add96(a, w96{b, 0u}); }
+
+// 4 a on 96 bits (a < 2^94).
+__device__ __forceinline__ w96 quad96(w96 a) {
+  return w96{a.lo << 2, (a.hi << 2) | (uint32_t)(a.lo >> 62)};
+}
+
+// x d + s on 96 bits for a 32-bit d: below 2^96 whenever s.hi + d < 2^32.
+__device__ __forceinline__ w96 mad96(uint64_t x, uint32_t d, w96 s) {
+  uint64_t a = (uint64_t)(uint32_t)x * d + (uint32_t)s.lo;
+  uint64_t b = (uint64_t)(uint32_t)(x >> 32) * d + (a >> 32);
+  b += (s.lo >> 32) | ((uint64_t)s.hi << 32);
+  return w96{(b << 32) | (uint32_t)a, (uint32_t)(b >> 32)};
+}
+
+// lo + 2^64 hi == lo + hi EPS (mod p): a lazy word.  hi EPS <= 2^64 - 2^33 + 1.
+__device__ __forceinline__ uint64_t fold96(w96 a) {
+  return add_lazy(a.lo, (uint64_t)a.hi * (uint32_t)EPS);
+}
+
+// hi 2^64 + lo (mod p) as a lazy word.  With hi = r3 2^32 + r2 it is
+// lo - r3 + r2 EPS: sub_lazy's case (r3 < 2^32), then add_lazy's.
+__device__ __forceinline__ uint64_t reduce128_lazy(uint64_t hi, uint64_t lo) {
+  return add_lazy(sub_lazy(lo, hi >> 32), (uint64_t)(uint32_t)hi * (uint32_t)EPS);
+}
+
+// Lazy in, lazy out.  The 128-bit product is left to the compiler (mul.lo.u64
+// and mul.hi.u64 side by side): it shares their partial products itself, in
+// fewer instructions than a product spelt out in 32-bit halves or in
+// mad.lo.cc / madc.hi chains, and it drops the repeated cross product of a
+// square, which a three-product square written by hand did not beat (PERF.md).
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  return reduce128_lazy(__umul64hi(a, b), a * b);
+}
+
+__device__ __forceinline__ uint64_t sqr_lazy(uint64_t a) { return mul_lazy(a, a); }
+
+// Lazy in, canonical out.
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return canon(mul_lazy(a, b)); }
+
+// One radix-2 butterfly (a, b) -> (a + b w, a - b w): a lazy in and out, b
+// lazy in and out, w canonical or lazy.  Only the product is made canonical,
+// which is what add_lazy and sub_lazy ask of their second operand.
+__device__ __forceinline__ void butterfly(uint64_t& a, uint64_t& b, uint64_t w) {
+  const uint64_t t = mul(b, w);
+  b = sub_lazy(a, t);
+  a = add_lazy(a, t);
 }
 
 }  // namespace gl

@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import poseidon
+from . import poseidon_cuda
 
 
 @dataclass
@@ -41,21 +41,17 @@ class MerkleTree:
 
 
 def hash_leaves(leaves):
-    """Leaf data [..., L, W] -> digests [..., L, 4]."""
-    return poseidon.hash_no_pad(leaves.movedim(-1, 0)).movedim(0, -1)
+    """Leaf data [..., L, W] (contiguous, on either device: the kernel reads
+    it by strides) -> digests [..., L, 4] (one sponge launch on CUDA)."""
+    return poseidon_cuda.sponge(leaves, "leaf")
 
 
 def leaf_digests_from_polys(lde):
-    """Poly-major LDE [..., k, N] -> leaf digests [..., N, 4]: leaf j is the
-    sponge over the k polynomial values at domain point j, absorbed rate-8
-    slices at a time along the poly axis (no leaf-major copy of the LDE)."""
-    k = lde.shape[-2]
-    state = torch.zeros((poseidon.WIDTH,) + lde.shape[:-2] + lde.shape[-1:],
-                        dtype=torch.int64, device=lde.device)
-    for off in range(0, k, poseidon.RATE):
-        chunk = lde[..., off:off + poseidon.RATE, :].movedim(-2, 0)
-        state = poseidon.permute_stacked(torch.cat([chunk, state[chunk.shape[0]:]], 0))
-    return state[:4].movedim(0, -1)
+    """Poly-major LDE [..., k, N] (contiguous, on either device) -> leaf
+    digests [..., N, 4]: leaf j is the sponge over the k polynomial values at
+    domain point j, read in place (no leaf-major copy of the LDE; one sponge
+    launch on CUDA)."""
+    return poseidon_cuda.sponge(lde, "poly")
 
 
 def build_tree_from_digests(digests, cap_height: int) -> MerkleTree:

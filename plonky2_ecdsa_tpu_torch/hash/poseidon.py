@@ -1,8 +1,9 @@
 """Poseidon2 permutation over Goldilocks, width 12, x^7 S-box, on int64 tensors.
 
 Counterpart of ``plonky2_ecdsa_tpu.hash.poseidon``.  The state is stacked:
-one tensor with leading axis 12.  ``permute_stacked`` sends a CUDA state to
-the kernel in ``poseidon_cuda`` and a CPU state to ``permute_plain`` below.
+one tensor with leading axis 12.  ``permute_stacked`` and ``hash_no_pad`` send
+a CUDA tensor to the kernels in ``poseidon_cuda`` (the permutation; the whole
+sponge in one launch) and a CPU tensor to the plain versions.
 The round constants are derived here, by the same Grain-LFSR stream as the
 reference; a test holds them against the frozen vectors and the reference.
 """
@@ -158,15 +159,11 @@ def permute_stacked(state):
 
 
 def hash_no_pad(elems):
-    """Overwrite-mode sponge (rate 8) over elems [k, ...] -> digest [4, ...]."""
-    k = elems.shape[0]
-    assert k > 0
-    state = torch.zeros((WIDTH,) + elems.shape[1:], dtype=torch.int64,
-                        device=elems.device)
-    for off in range(0, k, RATE):
-        chunk = elems[off:off + RATE]
-        state = permute_stacked(torch.cat([chunk, state[chunk.shape[0]:]], 0))
-    return state[:4]
+    """Overwrite-mode sponge (rate 8) over elems [k, ...] -> digest [4, ...]
+    (one kernel launch on CUDA)."""
+    from .poseidon_cuda import sponge
+
+    return sponge(elems, "stacked")
 
 
 def two_to_one(left, right):

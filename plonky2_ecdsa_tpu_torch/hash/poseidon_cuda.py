@@ -2,11 +2,15 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.hash.poseidon_pallas``:
   * ``permute``  replaces ``_kernel``       (poseidon_pallas.py:93, pallas_call :118);
+  * ``sponge``   replaces the same kernel where it was called once per 8
+    absorbed columns: the whole overwrite-mode sponge of every leaf in one
+    launch, the state in registers over all absorptions;
   * ``grind``    replaces ``_grind_kernel`` (poseidon_pallas.py:144, pallas_call :208).
 
 Each wrapper takes the plain torch version for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises.  ``launches`` on each wrapper counts
-its kernel launches.
+its kernel launches.  ``field_check`` launches the CUDA source's test entry
+(the kernels' field primitives on arrays of operands; CUDA tensors only).
 """
 
 from __future__ import annotations
@@ -22,13 +26,23 @@ from . import poseidon
 
 
 @functools.cache
-def _lib():
+def _lib(device_index: int):
+    """The kernel library, its round constants copied to CUDA device
+    `device_index` (__constant__ memory is one copy per device)."""
     lib = _build.library()
     rc = np.ascontiguousarray(poseidon.RC_TABLE, dtype=np.uint64)
-    diag = np.asarray(poseidon.DIAG_M1, dtype=np.uint64)
-    _build.check(lib.p2_set_constants(rc.ctypes.data, diag.ctypes.data),
-                 "poseidon2 constants")
+    diag = np.asarray(poseidon.DIAG_M1, dtype=np.uint32)
+    with torch.cuda.device(device_index):
+        _build.check(lib.p2_set_constants(rc.ctypes.data, diag.ctypes.data),
+                     "poseidon2 constants")
     return lib
+
+
+def _launch(entry: str, t, *args):
+    """Call C entry point `entry` on tensor t's device and current stream."""
+    with torch.cuda.device(t.device):
+        fn = getattr(_lib(t.device.index), entry)
+        _build.check(fn(*args, _build.stream_ptr(t)), entry)
 
 
 def permute(state):
@@ -41,13 +55,90 @@ def permute(state):
     out = torch.empty_like(state)
     m = state.numel() // poseidon.WIDTH
     if m:
-        _build.check(_lib().p2_permute(state.data_ptr(), out.data_ptr(), m,
-                                       _build.stream_ptr(state)), "poseidon2 permute")
+        _launch("p2_permute", state, state.data_ptr(), out.data_ptr(), m)
         permute.launches += 1
     return out
 
 
 permute.launches = 0
+
+
+# The sponge's layouts: where the k absorbed words of a leaf lie in the input
+# and where its 4 digest words go.
+#   "poly":    [..., k, N] -> [..., N, 4]   (a poly-major LDE; leaf j = column j)
+#   "leaf":    [..., L, k] -> [..., L, 4]   (leaf-major rows: Merkle pairs, FRI leaves)
+#   "stacked": [k, ...]    -> [4, ...]      (hash_no_pad's stacked words)
+SPONGE_LAYOUTS = ("poly", "leaf", "stacked")
+
+
+def _stacked(x, layout: str):
+    """x in `layout` as a [k, ...] view."""
+    if layout not in SPONGE_LAYOUTS:
+        raise ValueError(f"sponge: layout {layout!r} is none of {SPONGE_LAYOUTS}")
+    if x.dim() < (1 if layout == "stacked" else 2):
+        raise ValueError(f"sponge: layout {layout!r} of a tensor {tuple(x.shape)}")
+    return x if layout == "stacked" else x.movedim(-2 if layout == "poly" else -1, 0)
+
+
+def sponge_plain(x, layout: str):
+    """Plain torch overwrite-mode sponge (rate 8, no padding) of every leaf of
+    x (see SPONGE_LAYOUTS): one permute_plain per 8 absorbed words."""
+    elems = _stacked(x, layout)
+    k = elems.shape[0]
+    if k == 0:
+        raise ValueError("sponge: nothing to absorb")
+    state = torch.zeros((poseidon.WIDTH,) + elems.shape[1:], dtype=torch.int64, device=x.device)
+    for off in range(0, k, poseidon.RATE):
+        chunk = elems[off:off + poseidon.RATE]
+        state = poseidon.permute_plain(torch.cat([chunk, state[chunk.shape[0]:]], 0))
+    return state[:4] if layout == "stacked" else state[:4].movedim(0, -1).contiguous()
+
+
+def sponge(x, layout: str):
+    """sponge_plain's digests: one kernel launch on CUDA, whatever k.  x must
+    be contiguous on either device, as the kernel needs it."""
+    _build.check_tensors("poseidon2 sponge", x)
+    elems = _stacked(x, layout)
+    k = elems.shape[0]
+    if k == 0:
+        raise ValueError("sponge: nothing to absorb")
+    if x.device.type == "cpu":
+        return sponge_plain(x, layout)
+    # strides in words of (batch, absorbed word, point) and of the digest's
+    # (word, leaf); leaf g = batch * points + point
+    if layout == "poly":
+        points = x.shape[-1]
+        batches, strides = x.numel() // (k * points), (k * points, points, 1, 1, 4)
+        out = torch.empty(x.shape[:-2] + (points, 4), dtype=torch.int64, device=x.device)
+    elif layout == "leaf":
+        batches, points, strides = 1, x.numel() // k, (0, 1, k, 1, 4)
+        out = torch.empty(x.shape[:-1] + (4,), dtype=torch.int64, device=x.device)
+    else:
+        batches, points = 1, x.numel() // k
+        strides = (0, points, 1, points, 1)
+        out = torch.empty((4,) + x.shape[1:], dtype=torch.int64, device=x.device)
+    if points:
+        _launch("p2_sponge", x, x.data_ptr(), out.data_ptr(), batches, points, k, *strides)
+        sponge.launches += 1
+    return out
+
+
+sponge.launches = 0
+
+
+FIELD_CHECK_ROWS = 12   # csrc/poseidon2.cu's FIELD_CHECK_ROWS: 5 lazy rows, 7 exact ones
+
+
+def field_check(a, b):
+    """Rows of csrc/poseidon2.cu::field_check_kernel for operand tensors a, b
+    [n] on a CUDA device: [rows, n] int64 (u64 bit patterns).  The operands
+    to run it on and the values to expect are field_check_vectors.py's."""
+    _build.check_tensors("poseidon2 field check", a, b)
+    if a.device.type != "cuda" or a.shape != b.shape or a.dim() != 1:
+        raise ValueError("field_check: needs two CUDA tensors [n]")
+    out = torch.empty((FIELD_CHECK_ROWS, a.numel()), dtype=torch.int64, device=a.device)
+    _launch("p2_field_check", a, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel())
+    return out
 
 
 def grind_plain(state, pow_bits: int, max_candidates: int):
@@ -88,10 +179,7 @@ def grind(state, pow_bits: int, max_candidates: int):
     # row 0: each lane's first hit (all-ones: none); row 1: its ticket counter
     scratch = torch.full((2, B), -1, dtype=torch.int64, device=st.device)
     if B:
-        with torch.cuda.device(st.device):
-            _build.check(_lib().p2_grind(st.data_ptr(), scratch.data_ptr(), B, pow_bits,
-                                         max_candidates, _build.stream_ptr(st)),
-                         "poseidon2 grind")
+        _launch("p2_grind", st, st.data_ptr(), scratch.data_ptr(), B, pow_bits, max_candidates)
         grind.launches += 1
     found = scratch[0] != -1
     return torch.where(found, scratch[0], 0), found

@@ -9,7 +9,8 @@ calls: the device expand of the value table, prove_core cut at each
 stop_after stage (cumulative), the whole prove_core and a whole run_vals
 (upload, expand, prove, readback).  Last it traces one run_vals with
 torch.profiler and reports the summed kernel time, its share of the traced
-wall time, and the kernels that take the most of it.  Prints the card's name
+wall time, the kernels that take the most of it, and the time and launches
+of each of the package's hand-written kernels.  Prints the card's name
 and power limit first; writes every number as JSON to --out.
 """
 
@@ -38,14 +39,21 @@ def _sync_time(fn) -> float:
     return time.perf_counter() - t0
 
 
+OWN_KERNELS = ("permute_kernel", "sponge_kernel", "grind_kernel", "sub_ntt_kernel")
+
+
 def _kernel_table(prof, top: int):
-    """(summed kernel ms, [(name, ms, calls)] of the `top` largest kernels)."""
+    """(summed kernel ms, [(name, ms, calls)] of the `top` largest kernels,
+    {own kernel: (ms, calls)} summed over the instantiations of each of the
+    package's hand-written kernels)."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in kernels),
                   key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+    own = {k: (sum(r[1] for r in rows if k in r[0]), sum(r[2] for r in rows if k in r[0]))
+           for k in OWN_KERNELS}
+    return sum(r[1] for r in rows), rows[:top], own
 
 
 def main(argv=None) -> int:
@@ -87,13 +95,16 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms = _sync_time(lambda: run.run_vals(vals, pis)) * 1e3
-    kernel_ms, top = _kernel_table(prof, 15)
+    kernel_ms, top, own = _kernel_table(prof, 15)
     print(f"traced run_vals: wall {wall_ms} ms, summed kernel time {kernel_ms} ms, "
           f"busy share {kernel_ms / wall_ms}  ({card})")
     for name, ms, calls in top:
         print(f"  {ms:10.3f} ms  {100 * ms / kernel_ms:5.1f}%  {calls:6d} calls  {name[:90]}")
+    for name, (ms, calls) in own.items():
+        print(f"  the package's {name}: {ms:.3f} ms in {calls} launches")
     result = dict(card=card, batch=BATCH, stages_ms=stages, traced_wall_ms=wall_ms,
                   traced_kernel_ms=kernel_ms,
+                  own_kernels={k: dict(ms=ms, calls=c) for k, (ms, c) in own.items()},
                   top_kernels=[dict(name=n, ms=ms, calls=c) for n, ms, c in top])
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -2,7 +2,7 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.prover.ntt``.  Every transform is sub-NTT
 launches (``ntt_cuda``): sizes from FOUR_STEP_MIN up run as a four-step
-(two sub-NTTs and a transpose, split by ``_split2``), smaller
+(two sub-NTTs, the first storing its output transposed; split by ``_split2``), smaller
 ones (the FRI final polynomial, test circuits) as one sub-NTT along the
 transform axis.  Coset scales and 1/n fold into the sub-NTTs' pre/post
 multiplies.  The transforms are exact, so the outputs equal the reference's.

@@ -2,7 +2,8 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.prover.ntt_pallas``: ``sub_ntt`` replaces
 ``_sub_ntt_kernel`` (ntt_pallas.py:119, pallas_call :181) and ``four_step``
-composes two of them with a transpose, as ntt_pallas.four_step does.
+composes two of them as ntt_pallas.four_step does; the transpose between the
+two passes is the first pass's own (transposed) store, not a copy.
 ``sub_ntt`` takes the plain torch version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``sub_ntt.launches`` counts its
 kernel launches.  Twiddle tables are built with the field on the device they
@@ -18,9 +19,7 @@ import torch
 from .. import _build
 from ..fields import goldilocks as gl
 
-SMEM_WORDS = 4096      # words of one block's [n_t, TL] tile (32 KiB)
-MAX_TILE = 32          # columns per block
-
+MAX_SUB_NTT = 1 << 12     # the kernel's largest transform (csrc/ntt.cu's MAX_LOG_N)
 
 FOUR_STEP_MIN = 1 << 10   # sizes from here up run as a four-step
 
@@ -68,10 +67,11 @@ def four_step_T(n: int, inverse: bool, device) -> torch.Tensor:
     return gl.mul(T, pow(n, gl.P - 2, gl.P)) if inverse else T
 
 
-def sub_ntt_plain(x, n_t: int, inverse: bool, pre=None, post=None):
+def sub_ntt_plain(x, n_t: int, inverse: bool, pre=None, post=None, transpose_out: bool = False):
     """Plain torch sub-NTT: x [M, rows_in, L] -> [M, n_t, L] along axis 1,
     natural order in and out.  Rows rows_in..n_t-1 are zero coefficients;
-    pre [rows_in, L] multiplies the input, post [n_t, L] the output."""
+    pre [rows_in, L] multiplies the input, post [n_t, L] the output.  With
+    transpose_out the result is stored as [M, L, n_t]."""
     M, rows_in, L = x.shape
     if pre is not None:
         x = gl.mul(x, pre)
@@ -88,30 +88,32 @@ def sub_ntt_plain(x, n_t: int, inverse: bool, pre=None, post=None):
         half *= 2
     if post is not None:
         x = gl.mul(x, post)
-    return x
+    return x.transpose(1, 2).contiguous() if transpose_out else x
 
 
-def sub_ntt(x, n_t: int, inverse: bool, pre=None, post=None):
+def sub_ntt(x, n_t: int, inverse: bool, pre=None, post=None, transpose_out: bool = False):
     """Sub-NTT of x [M, rows_in, L] (see sub_ntt_plain); kernel on CUDA."""
     _build.check_tensors("sub_ntt", x, *(t for t in (pre, post) if t is not None))
     M, rows_in, L = x.shape
-    if n_t & (n_t - 1) or not 0 < rows_in <= n_t:
+    if n_t & (n_t - 1) or not 0 < rows_in <= n_t <= MAX_SUB_NTT:
         raise ValueError(f"sub_ntt: n_t={n_t}, rows_in={rows_in}")
     if pre is not None and tuple(pre.shape) != (rows_in, L):
         raise ValueError(f"sub_ntt: pre {tuple(pre.shape)} != {(rows_in, L)}")
     if post is not None and tuple(post.shape) != (n_t, L):
         raise ValueError(f"sub_ntt: post {tuple(post.shape)} != {(n_t, L)}")
     if x.device.type == "cpu":
-        return sub_ntt_plain(x, n_t, inverse, pre, post)
+        return sub_ntt_plain(x, n_t, inverse, pre, post, transpose_out)
     tw = twiddles(n_t, inverse, x.device)
-    out = torch.empty((M, n_t, L), dtype=torch.int64, device=x.device)
-    TL = min(L, max(1, SMEM_WORDS // n_t), MAX_TILE)
+    out = torch.empty((M, L, n_t) if transpose_out else (M, n_t, L), dtype=torch.int64,
+                      device=x.device)
     if M and L:
         pre_p = None if pre is None else pre.data_ptr()
         post_p = None if post is None else post.data_ptr()
-        _build.check(_build.library().ntt_sub(
-            x.data_ptr(), out.data_ptr(), tw.data_ptr(), pre_p, post_p, M,
-            n_t.bit_length() - 1, rows_in, L, TL, _build.stream_ptr(x)), "sub_ntt")
+        with torch.cuda.device(x.device):
+            _build.check(_build.library().ntt_sub(
+                x.data_ptr(), out.data_ptr(), tw.data_ptr(), pre_p, post_p, M,
+                n_t.bit_length() - 1, rows_in, L, int(transpose_out), _build.stream_ptr(x)),
+                "sub_ntt")
         sub_ntt.launches += 1
     return out
 
@@ -126,8 +128,7 @@ def _four_step(sub, x, n: int, inverse: bool, pre, post):
     rows_in = k // n2
     x = x.reshape(-1, rows_in, n2)
     y = sub(x, n1, inverse, None if pre is None else pre.reshape(rows_in, n2),
-            four_step_T(n, inverse, x.device))
-    y = y.transpose(1, 2).contiguous()                     # [M, n2, n1]
+            four_step_T(n, inverse, x.device), transpose_out=True)          # [M, n2, n1]
     y = sub(y, n2, inverse, None, None if post is None else post.reshape(n2, n1))
     return y.reshape(lead + (n,))
 

@@ -67,6 +67,52 @@ def test_sub_ntt_compact_rows_and_scales():
     assert np.array_equal(gl.to_u64(got), want)
 
 
+@pytest.mark.parametrize("shape", [(16, 24), (128, 40)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_sub_ntt_transposed_store(shape, inverse):
+    """transpose_out stores the same values as [M, L, n_t]."""
+    n_t, L = shape
+    x = gl.from_u64(_vals(n_t + L + inverse, (2, n_t // 2, L)))
+    pre, post = gl.from_u64(_vals(28, (n_t // 2, L))), gl.from_u64(_vals(29, (n_t, L)))
+    want = ntt_cuda.sub_ntt_plain(x, n_t, inverse, pre, post)
+    for fn in (ntt_cuda.sub_ntt_plain, ntt_cuda.sub_ntt):
+        got = fn(x, n_t, inverse, pre, post, transpose_out=True)
+        assert got.shape == (2, L, n_t) and got.is_contiguous()
+        assert torch.equal(got.transpose(1, 2), want)
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 13, 1 << 15])
+@pytest.mark.parametrize("kind", ["forward", "inverse", "compact coset lde", "coset intt"])
+def test_four_step_with_transposed_store_matches_reference(n, kind):
+    """The four-step as it now runs (first pass stored transposed, no copy
+    between the passes), through the plain sub-NTT, against the reference."""
+    if kind == "compact coset lde":
+        c = _vals(n + 31, (2, n // 4))
+        want = _ref(ref_ntt.coset_ntt_from_coeffs(*ref_gl.from_u64(c), n))
+        got = ntt.coset_ntt_from_coeffs(gl.from_u64(c), n)
+    elif kind == "coset intt":
+        v = _vals(n + 32, (2, n))
+        want = _ref(ref_ntt.coset_intt(*ref_gl.from_u64(v)))
+        got = ntt.coset_intt(gl.from_u64(v))
+    else:
+        v = _vals(n + 33, (2, n))
+        want = _ref(ref_ntt.ntt(*ref_gl.from_u64(v), inverse=kind == "inverse"))
+        got = ntt.ntt(gl.from_u64(v), inverse=kind == "inverse")
+    assert np.array_equal(gl.to_u64(got), want)
+
+
+def test_four_step_makes_two_passes_and_no_copy():
+    """four_step hands the first pass's transposed output straight to the second."""
+    calls = []
+
+    def sub(x, n_t, inverse, pre, post, transpose_out=False):
+        calls.append((tuple(x.shape), n_t, transpose_out, x.is_contiguous()))
+        return ntt_cuda.sub_ntt_plain(x, n_t, inverse, pre, post, transpose_out)
+
+    ntt_cuda._four_step(sub, gl.from_u64(_vals(34, (3, 1 << 11))), 1 << 11, False, None, None)
+    assert calls == [((3, 32, 64), 32, True, True), ((3, 64, 32), 64, False, True)]
+
+
 def test_sub_ntt_rejects_bad_shapes():
     x = gl.from_u64(_vals(23, (1, 8, 4)))
     with pytest.raises(ValueError):
@@ -79,6 +125,8 @@ def test_sub_ntt_rejects_bad_shapes():
         ntt_cuda.sub_ntt(x.transpose(1, 2), 4, False)
     with pytest.raises(ValueError):                      # not int64
         ntt_cuda.sub_ntt(x.to(torch.int32), 8, False)
+    with pytest.raises(ValueError):                      # above the kernel's largest transform
+        ntt_cuda.sub_ntt(x, 2 * ntt_cuda.MAX_SUB_NTT, False)
 
 
 def test_ext_powers_and_eval_poly_ext_match_reference():
