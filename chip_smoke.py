@@ -17,13 +17,23 @@ From the repository root, on a machine with one CUDA device:
   3. proves the small demo circuit (B=2) on the card and checks the proof
      leaf for leaf against the port's own proof on the CPU (plain kernels),
      and its digest against the value frozen from the reference;
-  4. drives the main path: EcdsaProverSystem(SECP256K1) -> fixed commit on
+  4. drives the main path, for secp256k1 (standard_ecc_config) and again for
+     P-256 (p256_ecc_config: 64 constant columns, 31 range values a row, the
+     windowed multiplication): EcdsaProverSystem(curve) -> fixed commit on
      the card -> witness_vals for B=32 statements (native tape) -> run_vals on
      the card -> the port's verifier on the card; checks lane 0 exactly,
-     requires a VerifyError for a tampered proof, checks the fixed cap, lane 0's wires cap and
-     lane 0's whole proof against the values frozen from the reference,
-     checks that every kernel was launched by the main path, and times
-     steady-state batches.
+     requires a VerifyError for a tampered proof, checks the fixed cap, lane
+     0's wires cap and lane 0's whole proof against the values frozen from the
+     reference, checks that every kernel was launched by that path (counts set
+     to 0 just before it, read just after), and times steady-state batches;
+  5. the wide-witness fallback on the card: a forged value table (a value of
+     41 bits under a narrow-classified slot) and a misclassified role (honest
+     table) both warn on stderr and are proved through the full-witness path;
+  6. the command line in this process, into a temporary directory: sign ->
+     build -> prove -> verify (exit 0), verify against a changed statement
+     (exit 1), and the saved circuit data loaded back onto the card proving
+     to the same digest;
+  7. one B=2 secp256k1 proof under wide_ecc_config (234 wires, 176 routed).
 Prints the card, the checks and the numbers, then a JSON line of the
 kernels, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the port beside it, it exits nonzero and prints no result.  JAX and
@@ -37,10 +47,13 @@ sys.modules["jax"] = None                 # any import of JAX fails loudly
 sys.modules["plonky2_ecdsa_tpu"] = None   # ... and of the reference package
 
 import concurrent.futures  # noqa: E402
+import contextlib  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -49,7 +62,11 @@ import torch  # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 32
 SEED = 3
-STEADY_BATCHES = 5
+STEADY_BATCHES = 3
+# column counts of the further paths, compared by the kernel checks before the
+# circuits exist and asserted against the built circuits afterwards
+P256_FIXED_COLS, P256_ZS_COLS = 159, 128
+WIDE_WIRES, WIDE_FIXED_COLS = 234, 225
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCHED_LANES_PER_CLK_SM = 128   # 4 schedulers x one 32-thread instruction per clock
 
@@ -186,6 +203,7 @@ def check_kernels(dev, card, sass):
     from plonky2_ecdsa_tpu_torch.prover import ntt, ntt_cuda
 
     rng = np.random.default_rng(SEED)
+    rng_new = np.random.default_rng(SEED + 1)   # later shapes: the earlier ones keep their inputs
     rows = []
     per_perm, per_cand = sass["permute_unrolled"], sass["grind_candidate"]
     per_mul = sass["probe_mul"] - sass["probe_base"]
@@ -231,7 +249,17 @@ def check_kernels(dev, card, sass):
     shapes = [("poly", lde), ("poly", random_field(rng, (BATCH, 20, 1 << 12), dev)),
               ("leaf", random_field(rng, (BATCH, 1 << 14, 8), dev)),
               ("leaf", random_field(rng, (3, 1000, 13), dev)),
-              ("stacked", random_field(rng, (5, BATCH, 42), dev))]
+              ("stacked", random_field(rng, (5, BATCH, 42), dev)),
+              # the P-256 fixed commit (64 constants + 14 selectors + 80 sigmas + the
+              # table: 159 columns, no batch axis; its wires and zs commits are both
+              # [32, 128, 2^15], the first shape), the wide config's wires (234
+              # columns, B=2) and fixed commit (225), none a multiple of 8; and the
+              # verifier's rows of queried leaves at those widths (42 queries)
+              ("poly", random_field(rng_new, (P256_FIXED_COLS, 1 << 15), dev)),
+              ("poly", random_field(rng_new, (2, WIDE_WIRES, 1 << 15), dev)),
+              ("poly", random_field(rng_new, (WIDE_FIXED_COLS, 1 << 15), dev)),
+              ("leaf", random_field(rng_new, (BATCH, 42, P256_FIXED_COLS), dev)),
+              ("leaf", random_field(rng_new, (2, 42, WIDE_WIRES), dev))]
     errs = []
     for layout, t in shapes:
         launches = poseidon_cuda.sponge.launches
@@ -341,6 +369,22 @@ def check_kernels(dev, card, sass):
     print(f"sub_ntt four-step coset LDE 2^13->2^15 (pre) [{BATCH}, 128] (the wires LDE): "
           f"max_abs_err={e} (tolerance 0)")
     del wires
+    # the further paths' widths: the P-256 fixed commit (no batch axis), the
+    # P-256 zs commit (128 columns, the shape just compared), the wide
+    # config's wires at B=2
+    for name, a in (("[%d] (the P-256 fixed commit)" % P256_FIXED_COLS,
+                     random_field(rng_new, (P256_FIXED_COLS, n), dev)),
+                    ("[2, %d] (the wide config's wires)" % WIDE_WIRES,
+                     random_field(rng_new, (2, WIDE_WIRES, n), dev))):
+        for label, size, inverse, pre in (("INTT n=2^13", n, True, None),
+                                          ("coset LDE 2^13->2^15 (pre)", N, False, cases[4][4])):
+            e = max_abs_err(ntt_cuda.four_step(a, size, inverse, pre),
+                            ntt_cuda.four_step_plain(a, size, inverse, pre))
+            errs.append(e)
+            print(f"sub_ntt four-step {label} {name}: max_abs_err={e} (tolerance 0)")
+    p256_zs = random_field(rng_new, (BATCH, P256_ZS_COLS, n), dev)
+    p256_zs_ms = cuda_ms(lambda: ntt_cuda.four_step(p256_zs, N, False, cases[4][4]), 10)
+    del p256_zs, a
     ragged = random_field(rng, (3, 64, 40), dev)       # a ragged last tile, compact rows
     scale = random_field(rng, (128, 40), dev)
     for tr in (False, True):
@@ -385,6 +429,9 @@ def check_kernels(dev, card, sass):
           f"ms, bound {wires_bound:.3f} ms by {wires_by} ({card.issue_ms(ops):.3f} ms by "
           f"operations, {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes), this code's issue "
           f"slots {card.issue_ms(instrs):.3f} ms  ({card.line})")
+    print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, {P256_ZS_COLS}] (the P-256 zs LDE; secp256k1's "
+          f"is [{BATCH}, 120]): kernel {p256_zs_ms:.3f} ms, same bound and issue slots as the "
+          f"wires LDE  ({card.line})")
     return rows
 
 
@@ -422,86 +469,239 @@ def check_demo(dev, anchors):
     print("demo proof: digest equals the reference's frozen digest; verified on the card")
 
 
-def main_path(dev, card, rows, anchors):
+def main_path(name, dev, card, rows, anchors):
+    """The main path for one curve (name: the anchors' prefix).  Returns the
+    system, the value table, the PIs and the proof for the later phases."""
     from plonky2_ecdsa_tpu_torch import api
     from plonky2_ecdsa_tpu_torch.prover import prover, verifier
 
+    curve = api.CURVES[name]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    system = api.EcdsaProverSystem(api.SECP256K1, device=dev)
+    system = api.EcdsaProverSystem(curve, device=dev)
     build_s = time.time() - t0
     t0 = time.time()
     data = system.data
     torch.cuda.synchronize()
     commit_s = time.time() - t0
     assert data.fixed_lde.device == dev and data.fixed_tree.cap.device == dev
-    assert hex_words(data.fixed_tree.cap) == anchors["secp256k1_fixed_cap"], \
+    assert data.n == anchors[f"{name}_n"]
+    assert hex_words(data.fixed_tree.cap) == anchors[f"{name}_fixed_cap"], \
         "fixed-commit cap differs from the reference's"
     t0 = time.time()
     run = system.prover
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    stmts = api.random_statements(api.SECP256K1, BATCH, seed=anchors["seed"])
+    stmts = api.random_statements(curve, BATCH, seed=anchors["seed"])
     t0 = time.time()
     vals, pis = system.witness_vals(stmts)
     witness_s = time.time() - t0
     assert system.circuit.last_tape_native, "the witness did not run through the native tape"
-    print(f"secp256k1: n={data.n} N={data.N}; circuit build {build_s:.1f} s, fixed data with "
-          f"the commit on the card {commit_s:.2f} s (cap equals the reference's), prover "
-          f"set-up {setup_s:.2f} s, witness B={BATCH} through the native tape {witness_s:.1f} s  "
-          f"({card.line})")
+    cfg = system.circuit.config
+    zs_cols = 2 * (cfg.num_routed_wires // cfg.permutation_chunk_size) + \
+        2 * data.lookup.cols_per_challenge
+    if name == "p256":
+        assert (data.fixed_values.shape[0], zs_cols) == (P256_FIXED_COLS, P256_ZS_COLS), \
+            "the kernel checks compared other widths than the P-256 path has"
+    print(f"{name}: n={data.n} N={data.N}, {cfg.num_wires} wires, {cfg.num_constant_cols} "
+          f"constant columns, {data.fixed_values.shape[0]} fixed and {zs_cols} zs columns; circuit "
+          f"build {build_s:.1f} s, fixed data with the commit on the card {commit_s:.2f} s (cap "
+          f"equals the reference's), prover set-up {setup_s:.2f} s, witness B={BATCH} through "
+          f"the native tape {witness_s:.1f} s  ({card.line})")
 
     for r in rows:
         r["fn"].launches = 0
     t0 = time.time()
     proof = run.run_vals(vals, pis)
     first_s = time.time() - t0
+    key = "launches" if name == "secp256k1" else f"launches_{name}"
     for r in rows:
-        r["launches"] = r.pop("fn").launches
-    print("main path kernel launches: " + ", ".join(f"{r['name']}={r['launches']}" for r in rows))
-    assert all(r["launches"] > 0 for r in rows), "a kernel of the main path was not launched"
+        r[key] = r["fn"].launches
+    print(f"{name} main path kernel launches a batch: "
+          + ", ".join(f"{r['name']}={r[key]}" for r in rows))
+    assert all(r[key] > 0 for r in rows), f"a kernel of the {name} path was not launched"
 
     t0 = time.time()
-    assert system.verify(proof), "B=32 proof rejected by the port's verifier"
+    verifier.verify_strict(data, proof)     # raises where a check fails
     torch.cuda.synchronize()
     verify_s = time.time() - t0
     t0 = time.time()
     assert api.verify_one_exact(data, proof, 0), "lane 0 fails the exact verifier"
     exact_s = time.time() - t0
-    assert all(system.verify_statement(proof, i, stmts[i]) for i in (0, BATCH - 1))
+    assert system.verify_statement(proof, 0, stmts[0]), "lane 0 does not bind its statement"
+    assert all(np.array_equal(proof.pis[i], api.statement_pis(stmts[i])) for i in range(BATCH))
     assert not np.array_equal(proof.pis[0], api.statement_pis(stmts[1])), \
         "a wrong statement was bound"
     # a tampered proof must fail one of the verifier's own checks: any other
     # exception (a launch error, a fault in the verifier) is not a rejection
     bad = prover.Proof(**{**proof.__dict__, "pis": proof.pis.copy()})
     bad.pis[0, 0] ^= np.uint64(1)
-    try:
-        verifier.verify_strict(data, bad)
-    except verifier.VerifyError as e:
-        rejected = str(e)
-    else:
-        raise AssertionError("tampered proof accepted")
+    rejected = rejection(data, bad)
     assert "lane 0" in rejected, f"the tampered lane is 0, the verifier said: {rejected}"
-    print(f"B={BATCH} proof: the port's verifier on the card says True ({verify_s:.2f} s), "
+    print(f"{name} B={BATCH} proof: the port's verifier on the card accepts it ({verify_s:.2f} s), "
           f"verify_one_exact lane 0 True ({exact_s:.1f} s), statements bound, flipped pis bit "
           f"of lane 0 rejected with VerifyError: {rejected}  ({card.line})")
 
     assert [f"{int(v):016x}" for v in proof.wires_cap[0].ravel()] == \
-        anchors["secp256k1_lane0_wires_cap"], "lane 0 wires cap differs from the reference's"
-    print("lane 0 wires cap equals the reference's numpy commitment at B=1 (frozen)")
-    if "secp256k1_lane0_proof_sha256" in anchors:
-        assert prover.proof_digest(proof, lane=0) == anchors["secp256k1_lane0_proof_sha256"], \
-            "lane 0 of the proof differs from the reference's B=1 proof"
-        print("lane 0 of the B=32 proof equals the reference's numpy B=1 proof (frozen digest)")
+        anchors[f"{name}_lane0_wires_cap"], "lane 0 wires cap differs from the reference's"
+    assert prover.proof_digest(proof, lane=0) == anchors[f"{name}_lane0_proof_sha256"], \
+        "lane 0 of the proof differs from the reference's B=1 proof"
+    print(f"{name}: lane 0's wires cap and lane 0 of the whole B={BATCH} proof equal the "
+          f"reference's numpy B=1 commitment and proof (frozen)")
 
     t0 = time.time()
     again = [run.run_vals(vals, pis) for _ in range(STEADY_BATCHES)]
     steady_s = (time.time() - t0) / STEADY_BATCHES
     assert all(prover.first_difference(proof, p) is None for p in again), \
         "proving is not deterministic"
-    print(f"first prove {first_s:.2f} s; steady state {steady_s:.2f} s/batch = "
+    print(f"{name}: first prove {first_s:.2f} s; steady state {steady_s:.2f} s/batch = "
           f"{BATCH / steady_s:.2f} proofs/s at B={BATCH} over {STEADY_BATCHES} batches; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card.line})")
+    return system, vals, pis, proof
+
+
+def rejection(data, proof) -> str:
+    """The VerifyError with which the port's verifier rejects `proof`; an
+    accepted proof, or any other exception, ends the run."""
+    from plonky2_ecdsa_tpu_torch.prover import verifier
+
+    try:
+        verifier.verify_strict(data, proof)
+    except verifier.VerifyError as e:
+        return str(e)
+    raise AssertionError("a proof that must be rejected was accepted")
+
+
+def check_fallback(system, vals, pis, proof, card):
+    """The wide-witness fallback on the card, on the first four lanes of the
+    secp256k1 batch.  (a) A forged table, bit 40 set under a narrow-classified
+    slot of lane 0: the warning, the very proof of the full-witness path, and
+    (the forged value being wrong for the circuit) lane 0 rejected, so the
+    real 64-bit value went up and no truncation.  (b) A misclassified role,
+    mul_nn's 34-bit carries declared narrow, on the honest table: the
+    warning, and the accepted proof that the narrow path gives."""
+    from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+
+    lanes = 4
+    vals, pis, data = np.ascontiguousarray(vals[:, :lanes]), pis[:lanes], system.data
+    run = system.prover
+    mask = prover._narrow_mask(system.circuit)
+    mask[system.circuit.derived_tids] = False
+    mask &= np.isin(np.arange(len(mask)), run._keep_n)
+    tid = int(np.nonzero(mask)[0][0])
+    forged = vals.copy()
+    forged[tid, 0] |= np.uint64(1) << np.uint64(40)
+
+    def warned(fn):
+        err = io.StringIO()
+        launches = poseidon_cuda.sponge.launches
+        with contextlib.redirect_stderr(err):
+            out = fn()
+        assert "falling back to the wide witness path" in err.getvalue(), err.getvalue()
+        assert poseidon_cuda.sponge.launches > launches, "the fallback left the kernels"
+        return out, err.getvalue().strip()
+
+    got, line = warned(lambda: run.run_vals(forged, pis))
+    wide = prover.prove(data, run._expand_host(forged), pis)
+    assert prover.first_difference(wide, got) is None, "fallback differs from the wide path"
+    rejected = rejection(data, got)
+    assert "lane 0" in rejected
+    print(f"fallback (a), forged table B={lanes}: stderr '{line}'; the proof equals the "
+          f"full-witness path's leaf for leaf; VerifyError: {rejected}")
+
+    honest = run.run_vals(vals, pis)
+    assert prover.proof_digest(honest, lane=0) == prover.proof_digest(proof, lane=0)
+    roles = prover._NARROW_ROLES["mul_nn"]
+    prover._NARROW_ROLES["mul_nn"] = roles + ("carry",)
+    try:
+        misclassified = prover.Prover(data)
+    finally:
+        prover._NARROW_ROLES["mul_nn"] = roles
+    got, line = warned(lambda: misclassified.run_vals(vals, pis))
+    verifier.verify_strict(data, got)
+    assert prover.first_difference(honest, got) is None
+    print(f"fallback (b), mul_nn's carries classified narrow, honest table B={lanes}: stderr "
+          f"'{line[:100]}...'; verify_strict accepts the proof, which equals the narrow path's "
+          f"leaf for leaf  ({card.line})")
+
+
+def exit_code(argv) -> int:
+    """The command line's exit code for argv, run in this process."""
+    from plonky2_ecdsa_tpu_torch import __main__ as cli
+
+    try:
+        cli.main(argv)
+    except SystemExit as e:
+        return 0 if e.code is None else e.code
+    return 0
+
+
+def check_command_line(system, dev, card):
+    """sign -> build -> prove -> verify for secp256k1 at a batch of 2; verify
+    against a changed statement; the saved circuit data back on the card."""
+    from plonky2_ecdsa_tpu_torch import __main__ as cli
+    from plonky2_ecdsa_tpu_torch.prover import prover, serialize
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        stmts, data_path, proof_path, changed = (os.path.join(d, f) for f in (
+            "stmts.json", "circuit.npz", "proof.npz", "changed.json"))
+        common = ["--curve", "secp256k1", "--device", str(dev)]
+        for argv in (["sign", *common, "--count", "2", "--seed", str(SEED), "--out", stmts],
+                     ["build", *common, "--data", data_path],
+                     ["prove", *common, "--statements", stmts, "--proof", proof_path]):
+            assert exit_code(argv) == 0, argv
+        verify = ["verify", *common, "--proof", proof_path, "--data", data_path, "--statements"]
+        assert exit_code(verify + [stmts]) == 0, "the command line rejects its own proof"
+        with open(stmts) as f:
+            rows = json.load(f)
+        rows[1]["r"] = f"{int(rows[1]['r'], 16) ^ 1:x}"
+        with open(changed, "w") as f:
+            json.dump(rows, f)
+        assert exit_code(verify + [changed]) == 1, "a changed statement must exit 1"
+        sizes = os.path.getsize(data_path), os.path.getsize(proof_path)
+        loaded = serialize.load_circuit_data(data_path, dev)
+        assert loaded.fixed_lde.device == dev and loaded.fixed_tree.cap.device == dev
+        assert hex_words(loaded.fixed_tree.cap) == hex_words(system.data.fixed_tree.cap)
+        saved = serialize.load_proof(proof_path)
+        vals, pis = system.witness_vals(cli._load_statements(stmts, system.curve))
+        again = prover.Prover(loaded).run_vals(vals, pis)
+    assert prover.first_difference(saved, again) is None
+    assert prover.proof_digest(again) == prover.proof_digest(system.prover.run_vals(vals, pis))
+    print(f"command line on {dev}: sign, build, prove, verify exit 0; verify with one bit of "
+          f"statement 1 changed exits 1; circuit data file {sizes[0]} bytes, proof file "
+          f"{sizes[1]} bytes; the loaded circuit data proves the batch to the saved proof, "
+          f"leaf for leaf, as the freshly built data does; {time.time() - t0:.1f} s  ({card.line})")
+
+
+def check_wide_config(dev, card):
+    """One B=2 secp256k1 proof under wide_ecc_config: 234 wire columns (no
+    multiple of 8: the sponge's remainder path, the sub-NTT on [2, 234])."""
+    from plonky2_ecdsa_tpu_torch import api
+    from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+
+    t0 = time.time()
+    system = api.EcdsaProverSystem(api.SECP256K1, CircuitConfig.wide_ecc_config(), device=dev)
+    cfg = system.circuit.config
+    assert (cfg.num_wires, system.data.fixed_values.shape[0]) == (WIDE_WIRES, WIDE_FIXED_COLS), \
+        "the kernel checks compared other widths than the wide config has"
+    stmts = api.random_statements(api.SECP256K1, 2, seed=SEED)
+    proof = system.prove(stmts)
+    verifier.verify_strict(system.data, proof)
+    assert all(system.verify_statement(proof, i, stmts[i]) for i in range(2))
+    assert proof.initial_leaves["wires"].shape[-1] == WIDE_WIRES
+    bad = prover.Proof(**{**proof.__dict__, "pis": proof.pis.copy()})
+    bad.pis[1, 44] ^= np.uint64(1)
+    rejected = rejection(system.data, bad)
+    assert "lane 1" in rejected
+    print(f"wide_ecc_config: secp256k1 n={system.n}, {cfg.num_wires} wires / "
+          f"{cfg.num_routed_wires} routed, B=2 proved and verified on the card, statements "
+          f"bound, a flipped pis bit of lane 1 rejected ({rejected}); "
+          f"{time.time() - t0:.1f} s  ({card.line})")
 
 
 def main() -> int:
@@ -532,9 +732,16 @@ def main() -> int:
     check_field(dev)
     rows = check_kernels(dev, card, sass)
     check_demo(dev, anchors)
-    main_path(dev, card, rows, anchors)
+    system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
+    check_fallback(system, vals, pis, proof, card)
+    check_command_line(system, dev, card)
+    del vals, pis, proof
+    main_path("p256", dev, card, rows, anchors)
+    check_wide_config(dev, card)
     assert sys.modules["jax"] is None and sys.modules["plonky2_ecdsa_tpu"] is None
     assert not [m for m in sys.modules if m.startswith(("jax.", "plonky2_ecdsa_tpu."))]
+    for r in rows:
+        del r["fn"]
     print(card.line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

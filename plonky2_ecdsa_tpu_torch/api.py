@@ -16,8 +16,9 @@ import numpy as np
 from .circuit.builder import CircuitBuilder
 from .circuit.config import CircuitConfig
 from .circuit.foreign import BITS, base_field, scalar_field
+from .circuit.witness import check_constraints
 from .curve import native as cn
-from .curve.native import SECP256K1  # noqa: F401
+from .curve.native import P256, SECP256K1  # noqa: F401
 from .gadgets import ecdsa as ge
 from .gadgets import nonnative as gn
 from .gadgets.curve import AffinePointTarget
@@ -26,6 +27,7 @@ from .prover.prover import Proof, Prover
 from .prover.verifier import verify, verify_one_exact  # noqa: F401
 
 MASK = (1 << BITS) - 1
+CURVES = {"secp256k1": cn.SECP256K1, "p256": cn.P256}    # by the command line's names
 
 
 def int_to_limbs(vals, num_limbs: int = 9) -> np.ndarray:
@@ -38,6 +40,11 @@ def int_to_limbs(vals, num_limbs: int = 9) -> np.ndarray:
     return out
 
 
+def limbs_to_int(arr) -> list:
+    """[B, num_limbs] rows of 29-bit limbs -> [B] Python ints."""
+    return [sum(int(limb) << (BITS * j) for j, limb in enumerate(row)) for row in arr]
+
+
 @dataclass
 class EcdsaStatement:
     """One signature-verification instance (native ints)."""
@@ -48,17 +55,21 @@ class EcdsaStatement:
 
 
 class EcdsaProverSystem:
-    """The ECDSA-verify circuit for one curve, proved and verified on `device`.
+    """The ECDSA-verify circuit for one curve and config, proved and verified
+    on `device`.  Without a config, P-256 takes p256_ecc_config and secp256k1
+    standard_ecc_config.
 
     Public inputs, in order: pk.x, pk.y, msg, r, s (45 limbs of 29 bits), so a
     proof binds the statement "signature (r, s) on msg verifies under pk"."""
 
-    def __init__(self, curve: cn.CurveParams = cn.SECP256K1, device="cuda"):
-        if curve is not cn.SECP256K1:
-            raise ValueError(f"unsupported curve {curve.name}")
+    def __init__(self, curve: cn.CurveParams = cn.SECP256K1,
+                 config: CircuitConfig | None = None, device="cuda"):
         self.curve = curve
         self.device = device
-        b = CircuitBuilder(CircuitConfig.standard_ecc_config())
+        if config is None:
+            config = (CircuitConfig.p256_ecc_config() if curve is cn.P256
+                      else CircuitConfig.standard_ecc_config())
+        b = CircuitBuilder(config)
         sf = scalar_field(curve)
         msg = gn.add_virtual_nonnative(b, sf)
         r = gn.add_virtual_nonnative(b, sf)
@@ -72,13 +83,23 @@ class EcdsaProverSystem:
         b.register_input("pk_y", pk.y.limbs)
         for t in (pk.x, pk.y, msg, r, s):
             b.register_public_inputs(t.limbs)
-        ge.verify_secp256k1_message_circuit(
-            b, msg, ge.ECDSASignatureTarget(r=r, s=s), ge.ECDSAPublicKeyTarget(point=pk))
+        sig = ge.ECDSASignatureTarget(r=r, s=s)
+        pkt = ge.ECDSAPublicKeyTarget(point=pk)
+        if curve is cn.SECP256K1:
+            ge.verify_secp256k1_message_circuit(b, msg, sig, pkt)
+        elif curve is cn.P256:
+            ge.verify_p256_message_circuit(b, msg, sig, pkt)
+        else:
+            raise ValueError(f"unsupported curve {curve.name}")
         self.circuit = b.build()
         self._data: CircuitData | None = None
         self._prover: Prover | None = None
 
     # ------------------------------------------------------------------ stats
+    @property
+    def num_rows(self) -> int:
+        return int((self.circuit.row_gate_idx >= 0).sum())
+
     @property
     def n(self) -> int:
         return self.circuit.n
@@ -123,6 +144,12 @@ class EcdsaProverSystem:
         vals = self.circuit._run_tape(self._inputs(stmts), len(stmts))
         return vals, self.circuit.public_input_values()
 
+    def check(self, stmts) -> bool:
+        """Whether the statements' witness satisfies every gate constraint
+        (on the host, no proof)."""
+        W, pis = self.witness(stmts)
+        return check_constraints(self.circuit, W, pis, raise_on_fail=False) == {}
+
     # ---------------------------------------------------------- prove, verify
     def prove(self, stmts) -> Proof:
         """One proof with a batch lane per statement."""
@@ -157,3 +184,8 @@ def random_statements(curve: cn.CurveParams, count: int, seed: int = 0) -> list:
         assert cn.verify_message(curve, msg, r, s, pk)
         out.append(EcdsaStatement(msg=msg, r=r, s=s, pk=pk))
     return out
+
+
+def prove_ecdsa_batch(system: EcdsaProverSystem, stmts) -> Proof:
+    """One proof object with a batch lane per signature."""
+    return system.prove(stmts)

@@ -1,8 +1,8 @@
-"""Stage breakdown of the port's secp256k1 main path on one CUDA device.
+"""Stage breakdown of the port's main path on one CUDA device.
 
-    python3 -m plonky2_ecdsa_tpu_torch.profile_stages [--out FILE]
+    python3 -m plonky2_ecdsa_tpu_torch.profile_stages [secp256k1|p256] [--out FILE]
 
-From the repository root.  Builds EcdsaProverSystem(SECP256K1), makes the
+From the repository root.  Builds EcdsaProverSystem(curve), makes the
 witness of B=32 statements (seed 3, as chip_smoke.py), proves once to warm
 up, then times, three times each on the host clock around synchronised
 calls: the device expand of the value table, prove_core cut at each
@@ -58,6 +58,7 @@ def _kernel_table(prof, top: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("curve", nargs="?", default="secp256k1", choices=["secp256k1", "p256"])
     ap.add_argument("--out", default="stages_b32.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -69,10 +70,11 @@ def main(argv=None) -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(card, flush=True)
-    system = api.EcdsaProverSystem(api.SECP256K1, device="cuda")
+    print(f"{card}; {args.curve}", flush=True)
+    curve = api.CURVES[args.curve]
+    system = api.EcdsaProverSystem(curve, device="cuda")
     run = system.prover
-    vals, pis = system.witness_vals(api.random_statements(api.SECP256K1, BATCH, seed=3))
+    vals, pis = system.witness_vals(api.random_statements(curve, BATCH, seed=3))
     vn, vw = run._vals_split(vals)
 
     def inputs():
@@ -102,7 +104,8 @@ def main(argv=None) -> int:
         print(f"  {ms:10.3f} ms  {100 * ms / kernel_ms:5.1f}%  {calls:6d} calls  {name[:90]}")
     for name, (ms, calls) in own.items():
         print(f"  the package's {name}: {ms:.3f} ms in {calls} launches")
-    result = dict(card=card, batch=BATCH, stages_ms=stages, traced_wall_ms=wall_ms,
+    result = dict(card=card, curve=args.curve, batch=BATCH, stages_ms=stages,
+                  traced_wall_ms=wall_ms,
                   traced_kernel_ms=kernel_ms,
                   own_kernels={k: dict(ms=ms, calls=c) for k, (ms, c) in own.items()},
                   top_kernels=[dict(name=n, ms=ms, calls=c) for n, ms, c in top])

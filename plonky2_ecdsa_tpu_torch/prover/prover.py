@@ -13,6 +13,7 @@ reference's value for value.
 from __future__ import annotations
 
 import hashlib
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -697,6 +698,7 @@ class Prover:
         self._imap_pi = torch.from_numpy(imap_pi).to(dev)
         self._pit = torch.from_numpy(pit).to(dev)
         self._rows = [torch.from_numpy(r).to(dev) for r in rows_arrays]
+        self._host_map: np.ndarray | None = None
 
     def _vals_split(self, vals: np.ndarray):
         """[T, B] u64 -> (narrow u32 [B, Tn], wide u64 [B, Tw + 1]); the last
@@ -732,14 +734,37 @@ class Prover:
         pi = vals[:, self._imap_pi].reshape(B, self.data.circuit.pi.num_cols, n)
         return wires, pi, vals[:, self._pit]
 
+    def _expand_host(self, vals: np.ndarray) -> np.ndarray:
+        """The value table [T, B] -> the full witness [num_wires, n, B] u64 on
+        the host (prover.py:992): raw table rows through read_map (the range
+        limbs are in the raw table), unpopulated cells from a zero row."""
+        circuit = self.data.circuit
+        n = self.data.n
+        num_wires = circuit.config.num_wires
+        if self._host_map is None:
+            full = np.full(num_wires * n, vals.shape[0], np.int64)
+            full[circuit.pos_cols * n + circuit.pos_rows] = circuit.read_map[circuit.pos_tids]
+            self._host_map = full
+        B = vals.shape[1]
+        vz = np.concatenate([vals, np.zeros((1, B), np.uint64)])
+        return vz[self._host_map].reshape(num_wires, n, B)
+
     def dispatch_vals(self, vals: np.ndarray, pis: np.ndarray):
         """Upload the compact table and enqueue the prove; returns a handle
-        for collect().  Raises NarrowMisclassification on a narrow-plane
-        violation."""
-        vn, vw = self._vals_split(vals)
-        narrow = torch.from_numpy(vn.view(np.int32)).to(self.device)
-        wide = gl.from_u64(vw, self.device)
-        return prove_core(self.data, self.backend, *self._expand(narrow, wide)), pis
+        for collect().  On a narrow-plane violation the batch is not lost: a
+        warning goes to stderr and the table is expanded on the host and
+        proved through the full-witness path, on the same device with the
+        same kernels (slower: the whole wire tensor goes up)."""
+        try:
+            vn, vw = self._vals_split(vals)
+        except NarrowMisclassification as e:
+            print(f"[prover] WARNING: {e}; falling back to the wide witness "
+                  "path for this batch", file=sys.stderr)
+            wires, pi, pis_dev = _inputs_to_device(self.data, self._expand_host(vals), pis)
+        else:
+            narrow = torch.from_numpy(vn.view(np.int32)).to(self.device)
+            wires, pi, pis_dev = self._expand(narrow, gl.from_u64(vw, self.device))
+        return prove_core(self.data, self.backend, wires, pi, pis_dev), pis
 
     def collect(self, handle) -> Proof:
         proof, pis = handle

@@ -2,10 +2,11 @@
 held where the reference cannot run (the GPU smoke run imports the port
 alone): ``plonky2_ecdsa_tpu_torch/vectors/anchors.json``.
 
-    JAX_PLATFORMS=cpu python tests/test_torch_anchors.py --write [--skip-proof]
+    JAX_PLATFORMS=cpu python tests/test_torch_anchors.py --write
 
-recomputes the file with the reference's numpy path (a quarter of an hour:
-the secp256k1 fixed commit and one B=1 proof in numpy).  The tests here check
+recomputes the file with the reference's numpy path (about eight minutes:
+for secp256k1 and for P-256, the fixed commit, the wires commit and one whole
+B=1 proof in numpy).  The tests here check
 that the file holds what the reference gives where that is quick (the demo
 proof), and that the port on the CPU meets the same values."""
 
@@ -16,6 +17,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -37,6 +39,9 @@ from test_torch_bridge import from_reference_proof, pair_to_u64  # noqa: E402
 ANCHORS = os.path.join(ROOT, "plonky2_ecdsa_tpu_torch", "vectors", "anchors.json")
 DEMO_BATCH = 2
 SEED = 3
+# Test processes run side by side: with a thread per core in each of them the
+# full-width fixed commit below spends minutes spinning on oversubscribed cores.
+torch.set_num_threads(2)
 
 
 def _hex(a) -> list:
@@ -53,30 +58,30 @@ def reference_demo_digest() -> str:
     return prover.proof_digest(from_reference_proof(ref_prover.prove(data, W, pis)))
 
 
-def make_anchors(with_proof: bool = True) -> dict:
+def make_anchors() -> dict:
     """Every frozen value, from the reference's numpy path."""
     os.environ["PLONKY2_TPU_HOST_BUILD"] = "1"
     out = {"demo_batch": DEMO_BATCH, "seed": SEED,
            "demo_proof_sha256": reference_demo_digest()}
-    t0 = time.time()
-    system = ref_api.EcdsaProverSystem(ref_cn.SECP256K1)
-    data = system.data
-    out["secp256k1_n"] = data.n
-    out["secp256k1_fixed_cap"] = _hex(pair_to_u64(data.fixed_tree.cap))
-    print(f"fixed commit: {time.time() - t0:.1f} s", flush=True)
-    stmts = ref_api.random_statements(ref_cn.SECP256K1, 1, seed=SEED)
-    W, pis = system.witness(stmts)
-    wires, pi, pis_pair = ref_prover.host_prep(data, W, pis)
-    t0 = time.time()
-    cap = ref_prover.prove_core(data, ref_prover.Backend(data, np), wires, pi, pis_pair, np,
-                                stop_after="commit")
-    out["secp256k1_lane0_wires_cap"] = _hex(pair_to_u64(cap)[0])
-    print(f"wires commit B=1: {time.time() - t0:.1f} s", flush=True)
-    if with_proof:
+    for name, curve in (("secp256k1", ref_cn.SECP256K1), ("p256", ref_cn.P256)):
+        t0 = time.time()
+        system = ref_api.EcdsaProverSystem(curve)
+        data = system.data
+        out[f"{name}_n"] = data.n
+        out[f"{name}_fixed_cap"] = _hex(pair_to_u64(data.fixed_tree.cap))
+        print(f"{name} fixed commit: {time.time() - t0:.1f} s", flush=True)
+        stmts = ref_api.random_statements(curve, 1, seed=SEED)
+        W, pis = system.witness(stmts)
+        wires, pi, pis_pair = ref_prover.host_prep(data, W, pis)
+        t0 = time.time()
+        cap = ref_prover.prove_core(data, ref_prover.Backend(data, np), wires, pi, pis_pair, np,
+                                    stop_after="commit")
+        out[f"{name}_lane0_wires_cap"] = _hex(pair_to_u64(cap)[0])
+        print(f"{name} wires commit B=1: {time.time() - t0:.1f} s", flush=True)
         t0 = time.time()
         proof = from_reference_proof(ref_prover.prove(data, W, pis))
-        out["secp256k1_lane0_proof_sha256"] = prover.proof_digest(proof, lane=0)
-        print(f"numpy prove B=1: {time.time() - t0:.1f} s", flush=True)
+        out[f"{name}_lane0_proof_sha256"] = prover.proof_digest(proof, lane=0)
+        print(f"{name} numpy prove B=1: {time.time() - t0:.1f} s", flush=True)
     return out
 
 
@@ -88,12 +93,14 @@ def anchors():
 
 def test_anchor_file_is_whole(anchors):
     assert anchors["demo_batch"] == DEMO_BATCH and anchors["seed"] == SEED
-    assert anchors["secp256k1_n"] == 1 << 13
     assert len(anchors["demo_proof_sha256"]) == 64
-    for name in ("secp256k1_fixed_cap", "secp256k1_lane0_wires_cap"):
-        words = [int(v, 16) for v in anchors[name]]
-        assert len(words) == 4 << 4 and all(0 <= w < gl.P for w in words), name   # cap_height 4
-    assert len(anchors.get("secp256k1_lane0_proof_sha256", "0" * 64)) == 64
+    for curve in ("secp256k1", "p256"):
+        assert anchors[f"{curve}_n"] == 1 << 13
+        for name in (f"{curve}_fixed_cap", f"{curve}_lane0_wires_cap"):
+            words = [int(v, 16) for v in anchors[name]]
+            assert len(words) == 4 << 4 and all(0 <= w < gl.P for w in words), name   # cap_height 4
+        assert len(anchors[f"{curve}_lane0_proof_sha256"]) == 64
+    assert anchors["p256_fixed_cap"] != anchors["secp256k1_fixed_cap"]
 
 
 def test_demo_anchor_is_the_references_proof(anchors):
@@ -118,7 +125,7 @@ def test_port_fixed_commit_meets_the_anchor(anchors):
 if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit(__doc__)
-    made = make_anchors(with_proof="--skip-proof" not in sys.argv)
+    made = make_anchors()
     os.makedirs(os.path.dirname(ANCHORS), exist_ok=True)
     with open(ANCHORS, "w") as f:
         json.dump(made, f, indent=1)

@@ -59,7 +59,7 @@ def nonnative():
 
 @pytest.fixture(scope="module")
 def secp():
-    return ref_api.EcdsaProverSystem(ref_cn.SECP256K1), api.EcdsaProverSystem(cn.SECP256K1, "cpu")
+    return ref_api.EcdsaProverSystem(ref_cn.SECP256K1), api.EcdsaProverSystem(cn.SECP256K1, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +241,43 @@ def test_secp256k1_witness_equals_reference(secp):
     assert sys_.circuit.last_tape_native
     assert np.array_equal(vals, ref_vals) and np.array_equal(pis, ref_pis)
     assert np.array_equal(prover._narrow_mask(sys_.circuit), ref_prover._narrow_mask(ref_sys.circuit))
+
+
+def test_wide_config_circuit_build_and_constraints():
+    """wide_ecc_config (234 wires, 176 routed), which the command line's
+    --config wide reaches: the secp256k1 circuit builds to the reference's,
+    gives the reference's witness, and every constraint holds."""
+    ref_sys = ref_api.EcdsaProverSystem(ref_cn.SECP256K1, RefConfig.wide_ecc_config())
+    sys_ = api.EcdsaProverSystem(cn.SECP256K1, CircuitConfig.wide_ecc_config(), device="cpu")
+    cfg = sys_.circuit.config
+    assert (cfg.num_wires, cfg.num_routed_wires) == (234, 176)
+    assert same_circuit(ref_sys.circuit, sys_.circuit) == []
+    assert sys_.num_rows == ref_sys.num_rows and sys_.gate_counts() == ref_sys.gate_counts()
+    stmts = api.random_statements(cn.SECP256K1, 2, seed=9)
+    vals, pis = sys_.witness_vals(stmts)
+    ref_vals, ref_pis = ref_sys.witness_vals(ref_api.random_statements(ref_cn.SECP256K1, 2, seed=9))
+    assert np.array_equal(vals, ref_vals) and np.array_equal(pis, ref_pis)
+    assert sys_.check(stmts)
+    assert np.array_equal(prover._narrow_mask(sys_.circuit), ref_prover._narrow_mask(ref_sys.circuit))
+
+
+def test_api_helpers_equal_reference(secp):
+    ref_sys, sys_ = secp
+    rng = np.random.default_rng(4)
+    xs = [int.from_bytes(rng.bytes(32), "little") for _ in range(5)] + [0, (1 << 261) - 1]
+    assert api.limbs_to_int(api.int_to_limbs(xs)) == xs == ref_api.limbs_to_int(
+        ref_api.int_to_limbs(xs))
+    assert sys_.num_rows == ref_sys.num_rows
+    stmts = api.random_statements(cn.SECP256K1, 2, seed=9)
+    assert sys_.check(stmts)
+    assert not sys_.check([stmts[0], api.EcdsaStatement(msg=stmts[1].msg ^ 1, r=stmts[1].r,
+                                                        s=stmts[1].s, pk=stmts[1].pk)])
+
+    class Recorder:
+        def prove(self, batch):
+            return ("proved", batch)
+
+    assert api.prove_ecdsa_batch(Recorder(), stmts) == ("proved", stmts)   # system.prove(stmts)
 
 
 def test_native_tape_build_failure_raises(monkeypatch, tmp_path):

@@ -1,8 +1,8 @@
 """Whole proofs: the port's own circuit, witness, fixed data and prover
 against the reference's numpy prove, leaf for leaf (tolerance 0), on the demo
 and nonnative-mul circuits; the production run_vals path against the
-full-witness path; and the loud failures (narrow-plane violation, exhausted
-grind, tampered proof)."""
+full-witness path; the loud wide-path fallback on a narrow-plane violation;
+and the loud failures (exhausted grind, tampered proof)."""
 
 import dataclasses
 
@@ -97,15 +97,66 @@ def test_run_vals_path_equals_witness_path(nonnative):
     assert prover.first_difference(from_reference_proof(ref), got) is None
 
 
-def test_narrow_plane_violation_raises(nonnative):
-    data, _W, vals, pis, _ref_data, _ref = nonnative
+def _forged(data, vals):
+    """The value table with bit 40 set under the first narrow-classified slot
+    that is uploaded, and that slot."""
     c = data.circuit
     mask = prover._narrow_mask(c)
-    mask[c.derived_tids] = False
+    mask[c.derived_tids] = False                     # derived targets are not uploaded
+    tid = int(np.nonzero(mask)[0][0])
     bad = vals.copy()
-    bad[int(np.nonzero(mask)[0][0]), 0] |= np.uint64(1) << np.uint64(40)
-    with pytest.raises(prover.NarrowMisclassification):
-        prover.make_prover(data).dispatch_vals(bad, pis)
+    bad[tid, 0] |= np.uint64(1) << np.uint64(40)
+    return bad, tid
+
+
+def test_narrow_plane_violation_raises(nonnative):
+    """NarrowMisclassification stays the internal signal: the split of the
+    table raises it; dispatch_vals catches it (next test)."""
+    data, _W, vals, _pis, _ref_data, _ref = nonnative
+    bad, tid = _forged(data, vals)
+    with pytest.raises(prover.NarrowMisclassification, match=rf"\[{tid}\]"):
+        prover.make_prover(data)._vals_split(bad)
+
+
+def test_narrow_plane_violation_falls_back_to_wide_path(nonnative, capfd):
+    """Counterpart of the reference's test_misclassified_wide_value_falls_
+    back_to_wide_path: a value >= 2^32 under a narrow-classified slot is not
+    truncated and the batch is not lost.  dispatch_vals warns on stderr and
+    proves the host-expanded witness through the full-witness path: the proof
+    equals the reference's wide-path proof of the same forged table leaf for
+    leaf.  The forged value is wrong for the circuit, so (as in the reference)
+    both verifiers reject that proof, which shows the real 64-bit value went
+    up and not a truncation; an honest table proves through the narrow path
+    afterwards."""
+    data, W, vals, pis, ref_data, ref = nonnative
+    bad, tid = _forged(data, vals)
+    run = prover.make_prover(data)
+    got = run.collect(run.dispatch_vals(bad, pis))
+    err = capfd.readouterr().err
+    assert "falling back to the wide witness path" in err and f"[{tid}]" in err
+    bad_W = run._expand_host(bad)
+    assert int((bad_W != W).sum()) >= 1 and np.array_equal(bad_W >> np.uint64(40) << np.uint64(40),
+                                                           bad_W ^ W)
+    want = ref_prover.prove(ref_data, bad_W, pis)
+    assert prover.first_difference(from_reference_proof(want), got) is None
+    assert not verify(data, got) and not ref_verify(ref_data, to_reference_proof(got))
+    again = run.run_vals(vals, pis)
+    assert capfd.readouterr().err == ""
+    assert prover.first_difference(from_reference_proof(ref), again) is None
+
+
+def test_misclassified_role_falls_back_and_still_proves(nonnative, capfd, monkeypatch):
+    """The fault the fallback exists for: a tape role classified narrow whose
+    honest values are wider (here the 34-bit carries of mul_nn declared
+    narrow).  The honest table then takes the wide path, with the warning,
+    and gives the very proof of the narrow path, which both verifiers accept."""
+    data, _W, vals, pis, ref_data, ref = nonnative
+    monkeypatch.setitem(prover._NARROW_ROLES, "mul_nn", ("q", "r", "carry"))
+    run = prover.make_prover(data)
+    got = run.run_vals(vals, pis)
+    assert "falling back to the wide witness path" in capfd.readouterr().err
+    assert prover.first_difference(from_reference_proof(ref), got) is None
+    assert verify(data, got) and ref_verify(ref_data, to_reference_proof(got))
 
 
 def test_exhausted_grind_is_rejected_at_collection(demo):
