@@ -10,13 +10,17 @@ From the repository root, on a machine with one CUDA device:
      folds, the final canonicalisation) on directed edge operands and random
      ones against Python integers; then holds each kernel against its plain
      torch version on the card, bit for
-     bit, at the shapes of the main path, times both, and works out the least
-     time the card could take for the same work (its bound: the bytes, or the
-     integer operations the arithmetic needs whatever the code) and, beside
-     it, the issue slots that this code's own instruction count fills;
+     bit, at the shapes of the main path and of the recursion path's outer
+     proof, times both, and works out the least time the card could take for
+     the same work (its bound: the bytes, or the integer operations the
+     arithmetic needs whatever the code) and, beside it, the issue slots that
+     this code's own instruction count fills;
   3. proves the small demo circuit (B=2) on the card and checks the proof
      leaf for leaf against the port's own proof on the CPU (plain kernels),
-     and its digest against the value frozen from the reference;
+     and its digest against the value frozen from the reference; then the
+     demo recursion (the reference tests' inner circuit at B=2, its verifier
+     circuit): the outer value table, fixed cap and lane 0 of the outer proof
+     against the reference's frozen values;
   4. drives the main path, for secp256k1 (standard_ecc_config) and again for
      P-256 (p256_ecc_config: 64 constant columns, 31 range values a row, the
      windowed multiplication): EcdsaProverSystem(curve) -> fixed commit on
@@ -33,7 +37,18 @@ From the repository root, on a machine with one CUDA device:
      build -> prove -> verify (exit 0), verify against a changed statement
      (exit 1), and the saved circuit data loaded back onto the card proving
      to the same digest;
-  7. one B=2 secp256k1 proof under wide_ecc_config (234 wires, 176 routed).
+  7. the recursion path (bench.py's bench_recursive), reusing the secp256k1
+     system: B=8 inner proofs (seed 11) -> the verifier circuit under
+     recursion_ecc_config (outer n = 2^14, N = 2^17, 28 queries, 16 PoW
+     bits; structure and fixed cap against the reference's frozen values)
+     -> witness through the native tape -> the outer proof (kernel counts
+     set to 0 just before the first, read just after), steady state through
+     dispatch_vals/collect -> verify_strict and verify_one_exact; the outer
+     PIs are the inner statements' limbs, no fallback is taken, and a flipped
+     inner statement limb breaks the outer witness;
+  8. one B=2 secp256k1 proof under wide_ecc_config (234 wires, 176 routed);
+  9. aggregation: 4 demo proofs -> 2 -> 1 through the 2-to-1 verifier
+     circuit; the root proof verifies and binds the four statements in order.
 Prints the card, the checks and the numbers, then a JSON line of the
 kernels, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the port beside it, it exits nonzero and prints no result.  JAX and
@@ -67,6 +82,13 @@ STEADY_BATCHES = 3
 # circuits exist and asserted against the built circuits afterwards
 P256_FIXED_COLS, P256_ZS_COLS = 159, 128
 WIDE_WIRES, WIDE_FIXED_COLS = 234, 225
+# the recursion path (bench.py's bench_recursive): B=8 inner secp256k1 proofs
+# (seed 11) verified by the outer circuit under recursion_ecc_config, n = 2^14,
+# N = 2^17, 136 wires; the demo recursion and the aggregation fold at the
+# reference tests' seeds
+REC_BATCH, REC_SEED = 8, 11
+OUTER_WIRES, OUTER_LOG_N, OUTER_LOG_LDE = 136, 14, 17
+AGG_BATCH, AGG_SEED = 4, 99
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCHED_LANES_PER_CLK_SM = 128   # 4 schedulers x one 32-thread instruction per clock
 
@@ -98,6 +120,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def lde_work(polys: int, n: int, N: int, per_butterfly: int, per_mul: int):
+    """(bytes, needed operations, this code's instructions) of `polys` coset
+    LDEs from n to N coefficients.
+
+    Bytes: the input, the coset powers, the four-step and stage twiddles read
+    once, the output written once.  Needed operations: the N/n coset
+    transforms of size n, (n/2) log2 n butterflies each, and one multiply per
+    coefficient per coset.  This code's instructions: the four-step runs one
+    transform of size N, (N/2) log2 N butterflies (its first pass on rows
+    that are zero past n), one multiply per input (coset power) and per
+    output (twiddle)."""
+    from plonky2_ecdsa_tpu_torch.prover import ntt_cuda
+
+    n1, n2 = ntt_cuda._split2(N)
+    nbytes = 8 * (polys * n + n + N + n1 + n2 + polys * N)
+    needed = polys * ((N // n) * (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS + N * MUL_OPS)
+    run = polys * ((N // 2) * (N.bit_length() - 1) * per_butterfly + (n + N) * per_mul)
+    return nbytes, needed, run
 
 
 def max_abs_err(a, b) -> float:
@@ -402,19 +444,7 @@ def check_kernels(dev, card, sass):
     _, a, size, inverse, pre, _post = cases[4]
     ms = cuda_ms(lambda: ntt_cuda.four_step(a, size, inverse, pre), 20)
     plain_ms = cuda_ms(lambda: ntt_cuda.four_step_plain(a, size, inverse, pre), 3)
-    # the transform as a function: input, coset powers, four-step twiddles and
-    # stage twiddles read once, output written once; N/2 log2 N butterflies a
-    # transform, one multiply per input (coset power) and per output (twiddle)
-    n1, n2 = ntt_cuda._split2(N)
-
-    def lde_work(polys):
-        """(bytes, needed operations, this code's instructions) of `polys` coset LDEs."""
-        nbytes = 8 * (polys * n + n + N + n1 + n2 + polys * N)
-        butterflies, scales = polys * (N // 2) * (N.bit_length() - 1), polys * (n + N)
-        return (nbytes, butterflies * BUTTERFLY_OPS + scales * MUL_OPS,
-                butterflies * per_butterfly + scales * per_mul)
-
-    nbytes, ops, instrs = lde_work(BATCH * 8)
+    nbytes, ops, instrs = lde_work(BATCH * 8, n, N, per_butterfly, per_mul)
     bounds = row("sub_ntt", "plonky2_ecdsa_tpu_torch/csrc/ntt.cu",
                  "plonky2_ecdsa_tpu/prover/ntt_pallas.py:181", ntt_cuda.sub_ntt,
                  err, ms, plain_ms, nbytes, ops, instrs)
@@ -423,7 +453,7 @@ def check_kernels(dev, card, sass):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {bounds} "
           f"({nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes), no library call computes this  "
           f"({card.line})")
-    nbytes, ops, instrs = lde_work(BATCH * 128)
+    nbytes, ops, instrs = lde_work(BATCH * 128, n, N, per_butterfly, per_mul)
     wires_bound, wires_by = card.bound(nbytes, ops)
     print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, 128] (the wires LDE): kernel {wires_ms:.3f} "
           f"ms, bound {wires_bound:.3f} ms by {wires_by} ({card.issue_ms(ops):.3f} ms by "
@@ -432,6 +462,42 @@ def check_kernels(dev, card, sass):
     print(f"sub_ntt coset LDE 2^13->2^15 [{BATCH}, {P256_ZS_COLS}] (the P-256 zs LDE; secp256k1's "
           f"is [{BATCH}, 120]): kernel {p256_zs_ms:.3f} ms, same bound and issue slots as the "
           f"wires LDE  ({card.line})")
+
+    # the recursion path's outer shapes: the wires leaf sponge [8, 136, 2^17]
+    # (17 absorptions a leaf) and the wires coset LDE 2^14 -> 2^17 on [8, 136]
+    rng_rec = np.random.default_rng(SEED + 2)
+    on, oN = 1 << OUTER_LOG_N, 1 << OUTER_LOG_LDE
+    lde = random_field(rng_rec, (REC_BATCH, OUTER_WIRES, oN), dev)
+    err = max_abs_err(poseidon_cuda.sponge(lde, "poly"), poseidon_cuda.sponge_plain(lde, "poly"))
+    assert err == 0.0, "poseidon2 sponge disagrees with the plain version at the outer shape"
+    ms = cuda_ms(lambda: poseidon_cuda.sponge(lde, "poly"), 10)
+    plain_ms = cuda_ms(lambda: poseidon_cuda.sponge_plain(lde, "poly"), 1)
+    leaves = REC_BATCH * oN
+    absorptions = leaves * -(-OUTER_WIRES // 8)
+    bounds = row("poseidon2_sponge_outer", "plonky2_ecdsa_tpu_torch/csrc/poseidon2.cu",
+                 "plonky2_ecdsa_tpu/hash/poseidon_pallas.py:118", poseidon_cuda.sponge,
+                 err, ms, plain_ms, lde.numel() * 8 + leaves * 4 * 8, absorptions * PERMUTE_OPS,
+                 absorptions * per_perm)
+    print(f"poseidon2 sponge, the outer wires leaves [{REC_BATCH}, {OUTER_WIRES}, 2^17] -> "
+          f"[{REC_BATCH}, 2^17, 4] ({leaves} leaves x {absorptions // leaves} absorptions, ONE "
+          f"launch): max_abs_err={err} (tolerance 0), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"{bounds}, no library call computes this  ({card.line})")
+    del lde
+    coeffs = random_field(rng_rec, (REC_BATCH, OUTER_WIRES, on), dev)
+    pre = ntt.coset_powers(oN, False, dev)[:on]
+    err = max_abs_err(ntt_cuda.four_step(coeffs, oN, False, pre),
+                      ntt_cuda.four_step_plain(coeffs, oN, False, pre))
+    assert err == 0.0, "sub_ntt disagrees with the plain version at the outer shape"
+    ms = cuda_ms(lambda: ntt_cuda.four_step(coeffs, oN, False, pre), 10)
+    plain_ms = cuda_ms(lambda: ntt_cuda.four_step_plain(coeffs, oN, False, pre), 2)
+    o1, o2 = ntt_cuda._split2(oN)
+    bounds = row("sub_ntt_outer", "plonky2_ecdsa_tpu_torch/csrc/ntt.cu",
+                 "plonky2_ecdsa_tpu/prover/ntt_pallas.py:181", ntt_cuda.sub_ntt,
+                 err, ms, plain_ms,
+                 *lde_work(REC_BATCH * OUTER_WIRES, on, oN, per_butterfly, per_mul))
+    print(f"sub_ntt four-step coset LDE 2^14->2^17 (pre) [{REC_BATCH}, {OUTER_WIRES}] (the outer "
+          f"wires LDE, {o1} x {o2}): max_abs_err={err} (tolerance 0), kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, {bounds}  ({card.line})")
     return rows
 
 
@@ -704,6 +770,227 @@ def check_wide_config(dev, card):
           f"{time.time() - t0:.1f} s  ({card.line})")
 
 
+# ---------------------------------------------------------------------------
+# recursion: the demo setting of the reference's tests/test_recursive_proof.py
+# ---------------------------------------------------------------------------
+
+def demo_inner_proof(batch, seed, dev):
+    """The demo recursion's inner circuit, its data on dev and a proof of
+    `batch` seeded lanes."""
+    from plonky2_ecdsa_tpu_torch.circuit.examples import recursion_demo_inner, recursion_demo_inputs
+    from plonky2_ecdsa_tpu_torch.prover import prover
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
+
+    ic = recursion_demo_inner()
+    W = ic.generate_witness(recursion_demo_inputs(batch, seed), batch)
+    idata = build_circuit_data(ic, dev)
+    return idata, prover.prove(idata, W, ic.public_input_values())
+
+
+def no_fallback(fn):
+    """fn() with stderr captured: the wide-witness fallback must not be taken
+    (an honest table has no value above its narrow classification)."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = fn()
+    sys.stderr.write(err.getvalue())
+    assert "falling back" not in err.getvalue(), f"the fallback was taken: {err.getvalue()}"
+    return out
+
+
+def check_demo_recursion(dev, card, anchors):
+    """The demo recursion (B=2, seed 77) on the card: the outer value table,
+    fixed cap and lane 0 of the outer proof equal the reference's frozen
+    values; the card's verifier accepts the proof and rejects a tampered one."""
+    from plonky2_ecdsa_tpu_torch.circuit import recursive_verifier as rv
+    from plonky2_ecdsa_tpu_torch.circuit.examples import recursion_demo_configs
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
+    from plonky2_ecdsa_tpu_torch.utils.debug import gate_histogram, value_table_digest
+
+    t0 = time.time()
+    batch = anchors["recursion_demo_batch"]
+    idata, iproof = demo_inner_proof(batch, anchors["recursion_demo_seed"], dev)
+    verifier.verify_strict(idata, iproof)
+    oc = rv.verifier_circuit(idata, recursion_demo_configs()[1])
+    vals = oc.value_table(rv.recursive_verifier_inputs(idata, iproof), batch)
+    opis = oc.public_input_values()
+    assert np.array_equal(opis, iproof.pis), "the inner PIs are not re-exported"
+    assert value_table_digest(vals) == anchors["recursion_demo_table_sha256"], \
+        "the demo outer value table differs from the reference's"
+    odata = build_circuit_data(oc, dev)
+    assert hex_words(odata.fixed_tree.cap) == anchors["recursion_demo_fixed_cap"], \
+        "the demo outer fixed cap differs from the reference's"
+    proof = no_fallback(lambda: prover.Prover(odata).run_vals(vals, opis))
+    assert prover.proof_digest(proof, lane=0) == anchors["recursion_demo_lane0_proof_sha256"], \
+        "lane 0 of the demo outer proof differs from the reference's"
+    verifier.verify_strict(odata, proof)
+    bad = prover.Proof(**{**proof.__dict__, "pis": proof.pis.copy()})
+    bad.pis[1, 2] ^= np.uint64(1)
+    rejected = rejection(odata, bad)
+    assert "lane 1" in rejected
+    print(f"demo recursion B={batch} on {dev}: outer n={oc.n} N={odata.N} "
+          f"({gate_histogram(oc)}); value table, outer fixed cap and lane 0 of the outer proof equal "
+          f"the reference's frozen values; verify_strict accepts the outer proof; a flipped pis "
+          f"bit of lane 1 rejected ({rejected}); {time.time() - t0:.1f} s  ({card.line})")
+
+
+def production_recursion(system, dev, card, rows, anchors):
+    """bench_recursive's path on the card: B=8 secp256k1 inner proofs ->
+    the verifier circuit under recursion_ecc_config (outer n = 2^14, N = 2^17,
+    28 queries, 16 PoW bits) -> fixed commit -> witness through the native
+    tape -> the outer proof, first and in steady state -> verify."""
+    from plonky2_ecdsa_tpu_torch import api
+    from plonky2_ecdsa_tpu_torch.circuit import recursive_verifier as rv
+    from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig
+    from plonky2_ecdsa_tpu_torch.circuit.witness import check_constraints
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
+    from plonky2_ecdsa_tpu_torch.utils.debug import (gate_histogram, gate_rows_used,
+                                                     structure_digest, witness_violations)
+
+    idata = system.data
+    stmts = api.random_statements(api.SECP256K1, REC_BATCH, seed=REC_SEED)
+    t0 = time.time()
+    iproof = system.prover.run_vals(*system.witness_vals(stmts))
+    verifier.verify_strict(idata, iproof)
+    inner_s = time.time() - t0
+    ipis = iproof.pis
+
+    t0 = time.time()
+    config = CircuitConfig.recursion_ecc_config()
+    oc = rv.verifier_circuit(idata, config)
+    build_s = time.time() - t0
+    nrows = gate_rows_used(oc)
+    assert (oc.n, nrows, gate_histogram(oc)) == (anchors["recursion_ecc_n"], anchors["recursion_ecc_rows"],
+                                            anchors["recursion_ecc_gates"]), \
+        "the outer circuit's shape differs from the reference's"
+    assert structure_digest(oc) == anchors["recursion_ecc_structure_sha256"], \
+        "the outer circuit's structure differs from the reference's"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    odata = build_circuit_data(oc, dev)
+    torch.cuda.synchronize()
+    commit_s = time.time() - t0
+    assert hex_words(odata.fixed_tree.cap) == anchors["recursion_ecc_fixed_cap"], \
+        "the outer fixed cap differs from the reference's"
+    t0 = time.time()
+    inputs = rv.recursive_verifier_inputs(idata, iproof)
+    vals = oc.value_table(inputs, REC_BATCH)
+    witness_s = time.time() - t0
+    assert oc.last_tape_native, "the outer witness did not run through the native tape"
+    native_ops = oc._native_tape().n_native
+    opis = oc.public_input_values()
+    assert np.array_equal(opis, ipis), "the outer PIs are not the inner statements' limbs"
+    t0 = time.time()
+    run = prover.Prover(odata)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    print(f"recursion: inner secp256k1 B={REC_BATCH} (seed {REC_SEED}) proved and verified "
+          f"{inner_s:.1f} s; outer circuit n={oc.n} ({nrows} rows: {gate_histogram(oc)}) built "
+          f"{build_s:.1f} s, structure equals the reference's; N={odata.N}, "
+          f"{odata.fixed_values.shape[0]} fixed columns, fixed commit on the card "
+          f"{commit_s:.2f} s (cap equals the reference's); witness B={REC_BATCH} through the "
+          f"native tape ({native_ops} of {len(oc.tape)} ops native, {vals.shape[0]} targets) "
+          f"{witness_s:.1f} s; prover set-up {setup_s:.2f} s  ({card.line})")
+
+    for r in rows:
+        r["fn"].launches = 0
+    t0 = time.time()
+    proof = no_fallback(lambda: run.run_vals(vals, opis))
+    first_s = time.time() - t0
+    for r in rows:
+        r["launches_recursive"] = r["fn"].launches
+    print("recursion: outer proof kernel launches a batch: "
+          + ", ".join(f"{r['name']}={r['launches_recursive']}" for r in rows))
+    assert all(r["launches_recursive"] > 0 for r in rows), "a kernel of the outer path was not launched"
+
+    def steady():
+        pending, proofs = None, []
+        for _ in range(STEADY_BATCHES):
+            handle = run.dispatch_vals(vals, opis)
+            if pending is not None:
+                proofs.append(run.collect(pending))
+            pending = handle
+        proofs.append(run.collect(pending))
+        return proofs
+
+    t0 = time.time()
+    again = no_fallback(steady)
+    steady_s = (time.time() - t0) / STEADY_BATCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(prover.first_difference(proof, p) is None for p in again), \
+        "outer proving is not deterministic"
+    print(f"recursion: first outer prove {first_s:.2f} s; steady state {steady_s:.2f} s/batch = "
+          f"{REC_BATCH / steady_s:.3f} outer proofs/s at B={REC_BATCH} over {STEADY_BATCHES} "
+          f"batches (dispatch_vals/collect); peak device memory {peak:.1f} GiB  ({card.line})")
+
+    t0 = time.time()
+    verifier.verify_strict(odata, proof)
+    torch.cuda.synchronize()
+    verify_s = time.time() - t0
+    t0 = time.time()
+    assert verifier.verify_one_exact(odata, proof, 0), "lane 0 fails the exact verifier"
+    exact_s = time.time() - t0
+    assert np.array_equal(proof.pis, ipis)
+
+    # one inner statement limb flipped: the outer witness is well formed
+    # (the sanitizer finds nothing) but no longer satisfies the circuit
+    bad = prover.Proof(**{**iproof.__dict__, "pis": iproof.pis.copy()})
+    bad.pis[0, 0] ^= np.uint64(1)
+    Wb = oc.generate_witness(rv.recursive_verifier_inputs(idata, bad), REC_BATCH)[..., :1]
+    sanitizer = witness_violations(oc, Wb)
+    failures = check_constraints(oc, Wb, oc.public_input_values()[:1], raise_on_fail=False)
+    assert failures, "a flipped inner statement still satisfies the outer circuit"
+    print(f"recursion: verify_strict accepts the outer proof ({verify_s:.2f} s), verify_one_exact "
+          f"lane 0 True ({exact_s:.1f} s), outer PIs = the {ipis.shape[1]} statement limbs of "
+          f"each inner lane; one inner statement limb of lane 0 flipped: witness sanitizer "
+          f"{sanitizer}, violated constraints {failures}  ({card.line})")
+
+
+def check_aggregation(dev, card):
+    """4 demo proofs -> 2 -> 1 on the card (the reference's 4-to-1 test):
+    the root proof verifies and binds the four statements in lane order; a
+    flipped leaf statement breaks the level-1 witness."""
+    from plonky2_ecdsa_tpu_torch.circuit import recursive_verifier as rv
+    from plonky2_ecdsa_tpu_torch.circuit.examples import recursion_demo_configs
+    from plonky2_ecdsa_tpu_torch.circuit.witness import check_constraints
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
+
+    t0 = time.time()
+    agg = recursion_demo_configs()[2]
+    idata, iproof = demo_inner_proof(AGG_BATCH, AGG_SEED, dev)
+    verifier.verify_strict(idata, iproof)
+    level, data, proof, sizes = iproof.pis, idata, iproof, []
+    for lanes in (AGG_BATCH // 2, AGG_BATCH // 4):
+        ac = rv.verifier_circuit(data, agg, aggregate=True)
+        vals = ac.value_table(rv.aggregation_inputs(data, rv.split_proof_lanes(proof)), lanes)
+        apis = ac.public_input_values()
+        assert np.array_equal(apis, np.concatenate([level[0::2], level[1::2]], axis=1))
+        if lanes == AGG_BATCH // 2:
+            level1 = ac
+        data = build_circuit_data(ac, dev)
+        proof = no_fallback(lambda: prover.Prover(data).run_vals(vals, apis))
+        verifier.verify_strict(data, proof)
+        level = apis
+        sizes.append(ac.n)
+    root = proof.pis[0].reshape(AGG_BATCH, iproof.pis.shape[1])
+    assert np.array_equal(root, iproof.pis), "the root proof does not bind the four statements"
+    bad = prover.Proof(**{**iproof.__dict__, "pis": iproof.pis.copy()})
+    bad.pis[2, 0] ^= np.uint64(1)
+    Wb = level1.generate_witness(rv.aggregation_inputs(idata, rv.split_proof_lanes(bad)),
+                                 AGG_BATCH // 2)
+    failures = check_constraints(level1, Wb, level1.public_input_values(), raise_on_fail=False)
+    assert failures, "a flipped leaf statement still aggregates"
+    print(f"aggregation: {AGG_BATCH} demo proofs -> 2 (n={sizes[0]}) -> 1 (n={sizes[1]}) on the "
+          f"card, every level verified; the root proof's PIs are the four statements' PIs in "
+          f"lane order; a flipped statement of leaf 2 breaks the level-1 witness ({failures}); "
+          f"{time.time() - t0:.1f} s  ({card.line})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -711,6 +998,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from plonky2_ecdsa_tpu_torch import _build, native
 
+    start = time.time()
     card = Card()
     print(card.line)
     dev = torch.device("cuda", 0)
@@ -732,16 +1020,21 @@ def main() -> int:
     check_field(dev)
     rows = check_kernels(dev, card, sass)
     check_demo(dev, anchors)
+    check_demo_recursion(dev, card, anchors)
     system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
     check_fallback(system, vals, pis, proof, card)
     check_command_line(system, dev, card)
     del vals, pis, proof
+    production_recursion(system, dev, card, rows, anchors)
+    del system
     main_path("p256", dev, card, rows, anchors)
     check_wide_config(dev, card)
+    check_aggregation(dev, card)
     assert sys.modules["jax"] is None and sys.modules["plonky2_ecdsa_tpu"] is None
     assert not [m for m in sys.modules if m.startswith(("jax.", "plonky2_ecdsa_tpu."))]
     for r in rows:
         del r["fn"]
+    print(f"chip_smoke: every phase passed in {time.time() - start:.1f} s")
     print(card.line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

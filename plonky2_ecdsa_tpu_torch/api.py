@@ -25,6 +25,7 @@ from .gadgets.curve import AffinePointTarget
 from .prover.data import CircuitData, build_circuit_data
 from .prover.prover import Proof, Prover
 from .prover.verifier import verify, verify_one_exact  # noqa: F401
+from .utils.debug import gate_histogram
 
 MASK = (1 << BITS) - 1
 CURVES = {"secp256k1": cn.SECP256K1, "p256": cn.P256}    # by the command line's names
@@ -106,8 +107,7 @@ class EcdsaProverSystem:
 
     def gate_counts(self) -> dict:
         """Rows per gate type."""
-        return {gate.gate_id(): len(self.circuit.gate_rows.get(gi, ()))
-                for gi, gate in enumerate(self.circuit.gates)}
+        return gate_histogram(self.circuit)
 
     # ------------------------------------------------------------- fixed data
     @property
@@ -141,7 +141,7 @@ class EcdsaProverSystem:
     def witness_vals(self, stmts):
         """The witness as the tape's value table [T, B] u64 (what
         Prover.run_vals takes), and the PIs [B, 45]."""
-        vals = self.circuit._run_tape(self._inputs(stmts), len(stmts))
+        vals = self.circuit.value_table(self._inputs(stmts), len(stmts))
         return vals, self.circuit.public_input_values()
 
     def check(self, stmts) -> bool:

@@ -120,13 +120,16 @@ class Circuit:
         semantic reference; both paths share the value table and give
         bit-identical results (tested).  When the native tape is asked for
         and its library does not build, this raises."""
-        vals = self._run_tape(inputs, batch, native)
+        vals = self.value_table(inputs, batch, native)
         W = np.zeros((self.config.num_wires, self.n, batch), dtype=np.uint64)
         W[self.pos_cols, self.pos_rows] = vals[self.pos_tids]
         return W
 
-    def _run_tape(self, inputs: dict, batch: int, native: bool = True):
-        vals = np.zeros((self.num_targets, batch), dtype=np.uint64)
+    def value_table(self, inputs: dict, batch: int, native: bool = True) -> np.ndarray:
+        """The witness tape run on `inputs` (as for generate_witness): the
+        value of every target, [num_targets, B] uint64, which is what
+        prover.Prover.run_vals takes.  public_input_values() reads it."""
+        vals =np.zeros((self.num_targets, batch), dtype=np.uint64)
         for tid, v in self.constant_values.items():
             vals[tid] = v
         for name, tids in self.inputs.items():

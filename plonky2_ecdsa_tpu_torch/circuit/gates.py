@@ -1,8 +1,8 @@
 """Gate inventory: constraint systems of the circuit IR.
 
-Counterpart of ``plonky2_ecdsa_tpu.circuit.gates`` (PoseidonGate and the
-stacked evaluators are not carried: the prover evaluates ``Gate.eval`` with
-a tensor algebra).
+Counterpart of ``plonky2_ecdsa_tpu.circuit.gates`` (the stacked evaluators
+are not carried: the prover evaluates ``Gate.eval`` with a tensor algebra;
+PoseidonGate lives in ``circuit.poseidon_gate``).
 
 Design stance (SURVEY.md §7): wide fused gates instead of the reference's
 per-UX-op rows, so each nonnative operation costs 1 row plus shared
@@ -69,12 +69,7 @@ class Gate:
         base class (not monkeypatched from circuit.recursion) so availability
         never depends on import order; the algebra adapter lives in
         circuit.recursion."""
-        try:
-            from .recursion import CircuitExtAlgebra
-        except ImportError as e:
-            raise NotImplementedError(
-                "in-circuit gate evaluation needs circuit.recursion, which "
-                "this package does not carry yet") from e
+        from .recursion import CircuitExtAlgebra
 
         return self.eval(CircuitExtAlgebra(builder), wires, consts, ctx or {})
 

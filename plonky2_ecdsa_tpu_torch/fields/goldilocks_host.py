@@ -12,9 +12,6 @@ from __future__ import annotations
 
 import numpy as np
 
-# wrap-around u64 arithmetic is intended; numpy warns for 0-d operands only
-np.seterr(over="ignore")
-
 P = (1 << 64) - (1 << 32) + 1
 MULTIPLICATIVE_GROUP_GENERATOR = 7
 TWO_ADICITY = 32
@@ -25,6 +22,10 @@ _P64 = np.uint64(P)
 _EPS = np.uint64(0xFFFFFFFF)
 _M32 = np.uint64(0xFFFFFFFF)
 _S32 = np.uint64(32)
+# Wrap-around u64 arithmetic is intended.  numpy warns of it for 0-d operands
+# only, and keeps its error state per thread, so each function that wraps
+# sets the state for its own call (a fresh errstate each time: one instance
+# is not safe across threads in every numpy version).
 
 
 def root_of_unity(n: int) -> int:
@@ -44,13 +45,15 @@ def geometric(first: int, ratio: int, n: int) -> np.ndarray:
 
 
 def add(a, b):
-    s = a + b
-    s = s + (s < a) * _EPS  # cannot wrap again
-    return np.where(s >= _P64, s - _P64, s)
+    with np.errstate(over="ignore"):
+        s = a + b
+        s = s + (s < a) * _EPS  # cannot wrap again
+        return np.where(s >= _P64, s - _P64, s)
 
 
 def sub(a, b):
-    return (a - b) - (a < b) * _EPS
+    with np.errstate(over="ignore"):
+        return (a - b) - (a < b) * _EPS
 
 
 def neg(a):
@@ -60,23 +63,24 @@ def neg(a):
 def mul(a, b):
     a0, a1 = a & _M32, a >> _S32
     b0, b1 = b & _M32, b >> _S32
-    ll = a0 * b0
-    mid = a0 * b1
-    mid2 = a1 * b0
-    mid = mid + mid2
-    midc = (mid < mid2).astype(np.uint64)  # carry into bit 96
-    hh = a1 * b1
-    lo = ll + (mid << _S32)
-    c = (lo < ll).astype(np.uint64)
-    hi = hh + (mid >> _S32) + (midc << _S32) + c
-    # 128 -> 64 bits: lo + (hi & M32) * EPS - (hi >> 32)
-    b96 = hi >> _S32
-    t = lo - b96
-    t = t - (lo < b96) * _EPS
-    u = (hi & _M32) * _EPS
-    r = t + u
-    r = r + (r < u) * _EPS
-    return np.where(r >= _P64, r - _P64, r)
+    with np.errstate(over="ignore"):
+        ll = a0 * b0
+        mid = a0 * b1
+        mid2 = a1 * b0
+        mid = mid + mid2
+        midc = (mid < mid2).astype(np.uint64)  # carry into bit 96
+        hh = a1 * b1
+        lo = ll + (mid << _S32)
+        c = (lo < ll).astype(np.uint64)
+        hi = hh + (mid >> _S32) + (midc << _S32) + c
+        # 128 -> 64 bits: lo + (hi & M32) * EPS - (hi >> 32)
+        b96 = hi >> _S32
+        t = lo - b96
+        t = t - (lo < b96) * _EPS
+        u = (hi & _M32) * _EPS
+        r = t + u
+        r = r + (r < u) * _EPS
+        return np.where(r >= _P64, r - _P64, r)
 
 
 def mul_const(a, c: int):

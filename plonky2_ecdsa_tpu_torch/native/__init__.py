@@ -12,8 +12,9 @@ the equivalent of the reference's Rust witness generators
 end-to-end proving throughput (numpy per-op dispatch costs ~250us/op;
 the C++ path runs the same op in ~2-10us).
 
-Ops without native kernels (rare: glv_decompose, ux_*, div_rem) run their
-python closures mid-stream; both paths share the one value table.
+Ops without native kernels (rare: glv_decompose, ux_*, div_rem, and the
+recursive verifier's inv_base, ext_inv and split64) run their python
+closures mid-stream; both paths share the one value table.
 
 Counterpart of ``plonky2_ecdsa_tpu.native``; the library is built with g++
 into the package's ``build/`` directory at first use.
@@ -61,8 +62,15 @@ def get_lib():
             raise RuntimeError(f"g++ failed on witness_ops.cpp:\n{res.stderr}")
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
-    for name in _SIGS:
+    for name in (*_SIGS, "poseidon_set_constants"):
         getattr(lib, name).restype = ctypes.c_int
+    # the ``poseidon`` op's Poseidon2 tables, from circuit.poseidon_gate (the
+    # library keeps no copy of its own)
+    from ..circuit.poseidon_gate import ME, MI, RC
+
+    tables = [np.ascontiguousarray(np.asarray(t, np.uint64).view(np.int64)) for t in (ME, MI, RC)]
+    if lib.poseidon_set_constants(*(_ptr(t) for t in tables)) != 0:
+        raise RuntimeError("the Poseidon2 tables do not fit the native poseidon op")
     return lib
 
 
@@ -70,7 +78,7 @@ _SIGS = {
     "op_mul_nn": 12, "op_inv_nn": 11, "op_add_nn": 12, "op_sub_nn": 12,
     "op_add_many_nn": 12, "op_cmp_const": 8, "op_range": 6, "op_arith": 8,
     "op_random_access": 10, "op_split": 5, "op_is_equal": 5,
-    "op_range_lookup": 7, "op_lookup_mult": 9,
+    "op_range_lookup": 7, "op_lookup_mult": 9, "op_poseidon": 5,
 }
 
 
@@ -189,6 +197,12 @@ class NativeTape:
         m_t = self._keep(_arr(p["m_ts"]))
         return (_ptr(gmeta), len(p["groups"]), _ptr(gvals), _ptr(m_t),
                 int(p["n"]), int(p["lb"]), int(p["zero_terms"]))
+
+    def _prep_poseidon(self, p, rm):
+        ins = self._keep(_arr(rm[_arr(p["ins"])]))
+        stored = self._keep(_arr(p["stored"]))
+        outs = self._keep(_arr(p["outs"]))
+        return (_ptr(ins), _ptr(stored), _ptr(outs))
 
     def _prep_arith(self, p, rm):
         return (int(rm[p["m1"]]), int(rm[p["m2"]]), int(rm[p["ad"]]),

@@ -343,6 +343,48 @@ static inline u64 gadd(u64 a, u64 b) {
     return (u64)(t % GOLD_P);
 }
 
+// Goldilocks reduction of any 128-bit value to its canonical residue:
+// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p), so lo + 2^64 (hi_lo + 2^32 hi_hi)
+// = lo - hi_hi + (2^32 - 1) hi_lo.
+static inline u64 gred128(u128 x) {
+    const u64 EPS = 0xFFFFFFFFull;
+    u64 lo = (u64)x, hi = (u64)(x >> 64);
+    u64 hh = hi >> 32, hl = hi & EPS;
+    u64 t0 = lo - hh;
+    if (lo < hh) t0 -= EPS;          // borrow: + 2^64 - EPS = + p
+    u64 t1 = hl * EPS;
+    u64 t2 = t0 + t1;
+    if (t2 < t1) t2 += EPS;          // carry: + 2^64 = + EPS (cannot wrap again)
+    return t2 >= GOLD_P ? t2 - GOLD_P : t2;
+}
+
+// ---------------------------------------------------------------------------
+// Poseidon2 permutation trace for the PoseidonGate rows (the numpy reference
+// is circuit/poseidon_gate.py _host_permute_trace).  The matrices and the
+// round-order constants come from that module once, through
+// poseidon_set_constants; this file holds no copy of them.
+// ---------------------------------------------------------------------------
+
+static const int P2_W = 12, P2_HF = 4, P2_PR = 22, P2_TR = 30;
+static const int P2_STORED = (P2_HF - 1) * P2_W + P2_PR + P2_HF * P2_W;   // 106
+static u64 P2_ME[P2_W][P2_W], P2_MI[P2_W][P2_W], P2_RC[P2_TR][P2_W];
+static int p2_constants_set = 0;
+
+static inline u64 p2_sbox(u64 x) {
+    u64 x2 = gred128((u128)x * x);
+    u64 x4 = gred128((u128)x2 * x2);
+    return gred128((u128)gred128((u128)x4 * x2) * x);
+}
+
+// out = M s; matrix entries < 2^32, so a row's sum stays below 2^100
+static inline void p2_layer(const u64 M[P2_W][P2_W], const u64 *s, u64 *out) {
+    for (int i = 0; i < P2_W; i++) {
+        u128 acc = 0;
+        for (int j = 0; j < P2_W; j++) acc += (u128)M[i][j] * s[j];
+        out[i] = gred128(acc);
+    }
+}
+
 // ---------------------------------------------------------------------------
 // exported ops.  All take (vals, B) plus op-specific prebuilt i64 arrays.
 // tid arrays are READ-resolved (read_map applied) for inputs, raw for writes.
@@ -728,6 +770,53 @@ int op_is_equal(u64 *vals, i64 B, i64 d_t, i64 inv_t, i64 eq_t) {
         }
         vals[inv_t * B + b] = inv;
         vals[eq_t * B + b] = d == 0;
+    }
+    return 0;
+}
+
+// ME, MI [12 x 12] and the round constants [30 x 12], row-major; returns 1
+// (and sets nothing) if a matrix entry is not below 2^32 or a constant not
+// below p
+int poseidon_set_constants(const i64 *me, const i64 *mi, const i64 *rc) {
+    for (int k = 0; k < P2_W * P2_W; k++)
+        if ((u64)me[k] >> 32 || (u64)mi[k] >> 32) return 1;
+    for (int k = 0; k < P2_TR * P2_W; k++)
+        if ((u64)rc[k] >= GOLD_P) return 1;
+    memcpy(P2_ME, me, sizeof(P2_ME));
+    memcpy(P2_MI, mi, sizeof(P2_MI));
+    memcpy(P2_RC, rc, sizeof(P2_RC));
+    p2_constants_set = 1;
+    return 0;
+}
+
+// one PoseidonGate row a lane: reads the 12 inputs, writes the 106 stored
+// S-box inputs (rounds 1..3 full, the 22 partial rounds' element 0, rounds
+// 26..29 full, in wire order) and the 12 outputs
+int op_poseidon(u64 *vals, i64 B, const i64 *in_t, const i64 *stored_t,
+                const i64 *out_t) {
+    if (!p2_constants_set) return 1;
+    for (i64 b = 0; b < B; b++) {
+        u64 s[P2_W], cur[P2_W], u[P2_W];
+        for (int i = 0; i < P2_W; i++) s[i] = vals[in_t[i] * B + b];
+        p2_layer(P2_ME, s, cur);                       // the initial external layer
+        int k = 0;
+        for (int r = 0; r < P2_TR; r++) {
+            for (int i = 0; i < P2_W; i++) u[i] = gred128((u128)cur[i] + P2_RC[r][i]);
+            bool full = r < P2_HF || r >= P2_HF + P2_PR;
+            if (r >= 1) {
+                int stored = full ? P2_W : 1;
+                for (int i = 0; i < stored; i++) vals[stored_t[k++] * B + b] = u[i];
+            }
+            if (full) {
+                for (int i = 0; i < P2_W; i++) u[i] = p2_sbox(u[i]);
+                p2_layer(P2_ME, u, cur);
+            } else {
+                u[0] = p2_sbox(u[0]);
+                p2_layer(P2_MI, u, cur);
+            }
+        }
+        if (k != P2_STORED) return 2;
+        for (int i = 0; i < P2_W; i++) vals[out_t[i] * B + b] = cur[i];
     }
     return 0;
 }

@@ -681,7 +681,7 @@ class NarrowMisclassification(ValueError):
 class Prover:
     """The production prover for one circuit on one device (make_jit_prover).
 
-    run_vals takes the tape's value table [T, B] u64 (Circuit._run_tape): the
+    run_vals takes the tape's value table [T, B] u64 (Circuit.value_table): the
     compacted table goes up (a u32 plane for the values statically known
     below 2^32, u64 for the rest, range-lookup limbs dropped), the wire,
     PI-polynomial and PI tensors are gathered and the limbs re-derived on the

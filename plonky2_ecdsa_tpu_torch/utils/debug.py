@@ -1,4 +1,5 @@
-"""Witness sanitizer: range checks over a whole witness batch, on numpy.
+"""Witness sanitizer: range checks over a whole witness batch, on numpy; and
+digests of a circuit's structure and of a value table.
 
 Counterpart of ``plonky2_ecdsa_tpu.utils.debug``.  ``witness_violations``
 validates a witness matrix against the contracts the proof system ASSUMES of
@@ -11,10 +12,19 @@ an honest witness:
 
 A violation means a fault in a witness generator: the proof would fail
 anyway, but with an opaque quotient or lookup mismatch; this reports counts
-per class instead.
+per class instead.  It does not evaluate the gates: a witness that is well
+formed but wrong for the circuit (a tampered inner proof fed to a verifier
+circuit) passes here and fails ``circuit.witness.check_constraints``.
+
+``structure_digest`` names a built circuit by what its proofs depend on, so
+two builds (two packages, two machines) can be compared by one value;
+``value_table_digest`` does the same for a witness tape's value table, and
+``gate_histogram`` / ``gate_rows_used`` count a circuit's rows by gate.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
@@ -62,3 +72,31 @@ def assert_witness_ok(circuit, W) -> None:
     """Raise AssertionError naming every violated contract class."""
     bad = {k: v for k, v in witness_violations(circuit, W).items() if v}
     assert not bad, f"witness sanitizer violations: {bad}"
+
+
+def structure_digest(circuit) -> str:
+    """sha256 over the circuit's n, the gate id of every row, its constant
+    columns, its copy classes (the sigma columns) and its public-input
+    targets."""
+    h = hashlib.sha256()
+    h.update(str(circuit.n).encode())
+    h.update("|".join(circuit.gates[gi].gate_id() for gi in circuit.row_gate_idx).encode())
+    for a in (circuit.constants, circuit.sigmas):
+        h.update(np.ascontiguousarray(a, "<u8").tobytes())
+    h.update(np.ascontiguousarray(circuit.pi_tids, "<i8").tobytes())
+    return h.hexdigest()
+
+
+def value_table_digest(vals) -> str:
+    """sha256 of a value table [T, B] (u64, little-endian bytes)."""
+    return hashlib.sha256(np.ascontiguousarray(vals, "<u8").tobytes()).hexdigest()
+
+
+def gate_histogram(circuit) -> dict:
+    """{gate id: rows holding it}."""
+    return {g.gate_id(): len(circuit.gate_rows.get(gi, ())) for gi, g in enumerate(circuit.gates)}
+
+
+def gate_rows_used(circuit) -> int:
+    """Rows that hold a gate other than Noop (padding)."""
+    return sum(k for gid, k in gate_histogram(circuit).items() if gid != "Noop")

@@ -1,13 +1,18 @@
 """The bridge between the reference package and the port, used by the other
 test_torch_* files: (lo, hi) u32 pairs <-> u64, the reference's Proof <-> the
-port's host Proof, and the reference's CircuitData as the plain arrays that
+port's host Proof, the port's CircuitConfig -> the reference's, and the
+reference's CircuitData as the plain arrays that
 ``circuit_data_from_reference`` takes.  The port itself knows nothing of the
 reference; only the tests hold the two side by side.  The tests below check
 the bridge itself (round trips, tolerance 0)."""
 
+import dataclasses
+
 import numpy as np
 
+from plonky2_ecdsa_tpu.circuit import config as ref_config
 from plonky2_ecdsa_tpu.fields import goldilocks as ref_gl
+from plonky2_ecdsa_tpu.prover import data as ref_data_mod
 from plonky2_ecdsa_tpu.prover import fri as ref_fri
 from plonky2_ecdsa_tpu.prover import prover as ref_prover
 from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
@@ -28,6 +33,12 @@ def tensor_to_pair(t):
 
 def pair_to_tensor(pair, device="cpu"):
     return gl.from_u64(pair_to_u64(pair), device)
+
+
+def to_reference_config(cfg):
+    """The port's CircuitConfig as the reference's (the same fields)."""
+    fields = dataclasses.asdict(cfg)
+    return ref_config.CircuitConfig(**{**fields, "fri": ref_config.FriConfig(**fields["fri"])})
 
 
 def _is_pair(x):
@@ -156,3 +167,31 @@ def test_proof_round_trip_keeps_every_leaf():
     back.openings1[1][1, 1] ^= np.uint64(1)
     assert prover.first_difference(p, back) == "openings1[1]"
     assert prover.proof_digest(p) != prover.proof_digest(back)
+
+
+def test_outer_circuit_data_converts_to_the_ports_own(monkeypatch):
+    """The demo recursion's outer CircuitData (a rate-8 verifier circuit with
+    PoseidonGate rows) from the reference, through reference_data_arrays and
+    circuit_data_from_reference, equals the port's own build array for array;
+    so a proof of either side can be checked against the other's data."""
+    from plonky2_ecdsa_tpu_torch.circuit import recursive_verifier as rv
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data, circuit_data_from_reference
+    from test_torch_recursive_proof import OUTER, port_inner, ref_inner, ref_outer_circuit
+
+    _ic, idata, _ip = port_inner(2, 77)
+    _ric, ridata, _rip = ref_inner(2, 77, monkeypatch)
+    oc = rv.verifier_circuit(idata, OUTER)
+    roc = ref_outer_circuit(ridata)
+    assert same_circuit(roc, oc) == []
+    arrays = reference_data_arrays(ref_data_mod.build_circuit_data(roc))
+    got = circuit_data_from_reference(oc, arrays, "cpu")
+    own = build_circuit_data(oc, "cpu")
+    assert (got.n, got.N, got.g, got.num_constraint_slots, got.perm_slots, got.lookup) == \
+        (own.n, own.N, own.g, own.num_constraint_slots, own.perm_slots, None)
+    for name in ("fixed_values", "id_encodings", "x_lde", "zh_inv", "l0_lde"):
+        assert np.array_equal(getattr(got, name), getattr(own, name)), name
+    for name in ("fixed_coeffs", "fixed_lde"):
+        assert np.array_equal(gl.to_u64(getattr(got, name)), gl.to_u64(getattr(own, name))), name
+    assert len(got.fixed_tree.levels) == len(own.fixed_tree.levels)
+    for a, b in zip(got.fixed_tree.levels, own.fixed_tree.levels):
+        assert np.array_equal(gl.to_u64(a), gl.to_u64(b))

@@ -224,7 +224,7 @@ def test_demo_witness_equals_reference(demo):
 def test_nonnative_witness_equals_reference(nonnative, native):
     ref_c, c = nonnative
     inputs = _nonnative_inputs()
-    vals = c._run_tape(inputs, 2, native)
+    vals = c.value_table(inputs, 2, native)
     assert c.last_tape_native is native
     assert np.array_equal(vals, ref_c._run_tape(inputs, 2, native))
     assert np.array_equal(c.public_input_values(), ref_c.public_input_values())
@@ -367,5 +367,31 @@ def test_gate_degree_above_blowup_is_refused(demo):
 
 
 def test_in_circuit_gate_evaluation_is_not_carried(demo):
-    with pytest.raises(NotImplementedError, match="recursion"):
-        demo[1].gates[0].eval_circuit(None, [], [])
+    """Named from before the package carried circuit.recursion, when
+    Gate.eval_circuit raised; it now checks that in-circuit evaluation is
+    carried: every gate of the demo circuit evaluates in-circuit to the same
+    circuit as the reference's, with the same value table."""
+    from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder as RefBuilder
+    from plonky2_ecdsa_tpu.circuit.recursion import add_virtual_ext as ref_ext
+    from plonky2_ecdsa_tpu_torch.circuit.builder import CircuitBuilder
+    from plonky2_ecdsa_tpu_torch.circuit.recursion import add_virtual_ext
+
+    def build(builder_cls, config, ext, gate):
+        b = builder_cls(config)
+        wires = [ext(b) for _ in range(gate.num_wires)]
+        consts = [ext(b) for _ in range(config.num_constant_cols)]
+        b.register_input("w", [t for e in wires + consts for t in e])
+        ctx = {"pi_vals": [ext(b) for _ in range(8)]}
+        for e in gate.eval_circuit(b, wires, consts, ctx):
+            b.register_public_inputs(e)
+        return b.build()
+
+    rng = np.random.default_rng(12)
+    for ref_gate, gate in zip(demo[0].gates, demo[1].gates):
+        if gate.num_constraints == 0:
+            continue
+        c = build(CircuitBuilder, CircuitConfig.test_config(), add_virtual_ext, gate)
+        rc = build(RefBuilder, RefConfig.test_config(), ref_ext, ref_gate)
+        assert same_circuit(rc, c) == [], gate.gate_id()
+        w = {"w": rng.integers(0, gl.P, (1, len(c.inputs["w"])), dtype=np.uint64)}
+        assert np.array_equal(c.value_table(w, 1), rc._run_tape(w, 1, None)), gate.gate_id()

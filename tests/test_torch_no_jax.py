@@ -94,3 +94,39 @@ def test_import_scan_sees_every_form(tmp_path):
     assert sorted(m for m in found if m.split(".")[0] in BLOCKED) == \
         ["jax.numpy", "plonky2_ecdsa_tpu.api", "plonky2_ecdsa_tpu.prover"]
     assert "plonky2_ecdsa_tpu_torch" in found
+
+
+_RECURSION = """
+import sys
+sys.modules["jax"] = None
+sys.modules["plonky2_ecdsa_tpu"] = None
+from plonky2_ecdsa_tpu_torch.circuit import (challenger_circuit, poseidon_gate, recursion,
+                                             recursive_verifier)
+from plonky2_ecdsa_tpu_torch.circuit.builder import CircuitBuilder
+from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig
+b = CircuitBuilder(CircuitConfig.standard_recursion_config())
+ins = b.add_virtual_targets(12)
+b.register_input("state", ins)
+b.register_public_inputs(poseidon_gate.poseidon_permute(b, ins))
+c = b.build()
+c.generate_witness({"state": [list(range(12))]}, 1)
+assert c.last_tape_native and c._native_tape().n_native == 1
+assert not [m for m in sys.modules if m.startswith(("jax.", "plonky2_ecdsa_tpu."))]
+print("recursion modules ok")
+"""
+
+
+def test_recursion_modules_import_with_jax_blocked():
+    """The four recursion modules import, and a PoseidonGate row fills through
+    the native tape, in a process where JAX and the reference are blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _RECURSION], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "recursion modules ok" in res.stdout
+
+
+def test_scan_covers_the_recursion_modules():
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("recursion", "poseidon_gate", "challenger_circuit", "recursive_verifier"):
+        assert os.path.join("circuit", f"{mod}.py") in names, mod

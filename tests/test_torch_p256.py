@@ -109,7 +109,7 @@ def test_p256_widths(p256, run):
 def test_p256_witness_equals_reference(p256, native):
     ref_sys, sys_ = p256
     inputs = sys_._inputs(api.random_statements(api.P256, 2, seed=SEED))
-    vals = sys_.circuit._run_tape(inputs, 2, native)
+    vals = sys_.circuit.value_table(inputs, 2, native)
     assert sys_.circuit.last_tape_native is native
     assert np.array_equal(vals, ref_sys.circuit._run_tape(inputs, 2, native))
     assert np.array_equal(sys_.circuit.public_input_values(),

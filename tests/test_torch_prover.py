@@ -64,7 +64,7 @@ def nonnative(env):
     xs = [int.from_bytes(rng.bytes(40), "little") % cn.SECP256K1.p for _ in range(2)]
     ys = [int.from_bytes(rng.bytes(40), "little") % cn.SECP256K1.p for _ in range(2)]
     inputs = {"x": int_to_limbs(xs), "y": int_to_limbs(ys)}
-    vals = c._run_tape(inputs, 2)
+    vals = c.value_table(inputs, 2)
     pis = c.public_input_values()
     W = c.generate_witness(inputs, 2)
     ref_c = ref_examples.nonnative_mul_chain_circuit(config=REF_FOLDING).build()

@@ -40,7 +40,7 @@ def chain():
     xs = [int.from_bytes(rng.bytes(40), "little") % cn.SECP256K1.p for _ in range(2)]
     ys = [int.from_bytes(rng.bytes(40), "little") % cn.SECP256K1.p for _ in range(2)]
     inputs = {"x": int_to_limbs(xs), "y": int_to_limbs(ys)}
-    vals = c._run_tape(inputs, 2)
+    vals = c.value_table(inputs, 2)
     pis = c.public_input_values()
     return data, inputs, vals, pis, prover.Prover(data).run_vals(vals, pis)
 
@@ -88,7 +88,7 @@ def test_attach_template_enables_witness_generation(chain, tmp_path):
     save_circuit_data(data, path)
     loaded = load_circuit_data(path, "cpu")
     attach_template(loaded, nonnative_mul_chain_circuit(config=FOLDING).build())
-    vals = loaded.circuit._run_tape(inputs, 2)
+    vals = loaded.circuit.value_table(inputs, 2)
     got = prover.Prover(loaded).run_vals(vals, loaded.circuit.public_input_values())
     assert prover.first_difference(proof, got) is None
     with pytest.raises(ValueError, match="template mismatch"):
