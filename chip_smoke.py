@@ -48,12 +48,25 @@ From the repository root, on a machine with one CUDA device:
      inner statement limb breaks the outer witness;
   8. one B=2 secp256k1 proof under wide_ecc_config (234 wires, 176 routed);
   9. aggregation: 4 demo proofs -> 2 -> 1 through the 2-to-1 verifier
-     circuit; the root proof verifies and binds the four statements in order.
+     circuit; the root proof verifies and binds the four statements in order;
+ 10. the witness sanitizer on the card over the B=32 witness (all zero; one
+     corrupted value gives the numpy counts) and the limb engine's tensor half
+     on the card against its numpy half;
+ 11. the mesh (parallel/mesh.py) in spawned ranks, one card: (a) NCCL, world
+     1; (b) gloo, world 2, both ranks on cuda:0, grids (dp 2, col 1) and (dp 1,
+     col 2), the B=32 secp256k1 batch through make_mesh_prover(...).run_vals
+     at full width, each giving the main path's digest; (c) gloo, world 4 on
+     cuda:0, the demo circuit on (dp 2, col 2) and (dcn 2, dp 1, col 2), the
+     reference's frozen demo digest.  Each rank's kernel launches (counts set
+     to 0 just before its run) are all above 0.  The kernel phase holds the
+     sponge on a strided domain slice, as the col axis hands it, against the
+     plain sponge of the copied slice.
 Prints the card, the checks and the numbers, then a JSON line of the
 kernels, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the port beside it, it exits nonzero and prints no result.  JAX and
 the reference package are blocked for the whole run: the port stands alone.
-No failure is caught and nothing carries on on the CPU.
+No failure is caught and nothing carries on on the CPU.  The mesh ranks import
+this file (spawn), so the run's work stays under the __main__ check.
 """
 
 import sys
@@ -311,6 +324,28 @@ def check_kernels(dev, card, sass):
         print(f"poseidon2 sponge {layout} {list(t.shape)}: max_abs_err={errs[-1]} (tolerance 0)")
     err = max(errs)
     assert err == 0.0, "poseidon2 sponge disagrees with the plain version"
+
+    # the col axis's leaf hashing (prover._tree_sharded): rank 1 of 2's domain
+    # slice of the wires LDE, a strided view the kernel reads in place, against
+    # the plain sponge of the copied slice
+    view = lde[..., 1 << 14:]
+    assert not view.is_contiguous()
+    got = poseidon_cuda.sponge(view, "poly")
+    copy = view.contiguous()
+    wrong = int((got != poseidon_cuda.sponge_plain(copy, "poly")).sum())
+    strided_ms = cuda_ms(lambda: poseidon_cuda.sponge(view, "poly"), 10)
+    copy_ms = cuda_ms(lambda: poseidon_cuda.sponge(copy, "poly"), 10)
+    leaves = BATCH << 14
+    strided_bound, strided_by = card.bound(view.numel() * 8 + leaves * 4 * 8,
+                                           leaves * 16 * PERMUTE_OPS)
+    print(f"poseidon2 sponge poly on a strided domain slice {list(view.shape)} of [{BATCH}, 128, "
+          f"2^15] (strides {view.stride()}, read in place): {wrong} of {got.numel()} words wrong "
+          f"against sponge_plain of the copied slice (tolerance 0); kernel {strided_ms:.3f} ms "
+          f"on the view, {copy_ms:.3f} ms on a contiguous copy; bound {strided_bound:.3f} ms by "
+          f"{strided_by}, this code's issue slots {card.issue_ms(leaves * 16 * per_perm):.3f} ms  "
+          f"({card.line})")
+    assert wrong == 0, "the sponge on a strided view disagrees with the plain version"
+    del view, copy, got
 
     def sponge_by_permutes():
         """The path the sponge kernel replaced: one copy of the whole state
@@ -991,6 +1026,229 @@ def check_aggregation(dev, card):
           f"{time.time() - t0:.1f} s  ({card.line})")
 
 
+# ---------------------------------------------------------------------------
+# the sanitizer and the limbs on the card
+# ---------------------------------------------------------------------------
+
+def check_sanitizer_and_limbs(system, vals, pis, dev, card):
+    """The witness sanitizer on the card over the B=32 witness: all zero,
+    and one corrupted value gives the numpy counts, and prover.prove, armed
+    by PLONKY2_TPU_DEBUG=1, refuses it; the limb engine's mul, add, sub and
+    convert on the card equal the numpy half on random 256-bit inputs."""
+    from plonky2_ecdsa_tpu_torch.circuit.gates import RangeLookupGate
+    from plonky2_ecdsa_tpu_torch.fields import limbs as lb
+    from plonky2_ecdsa_tpu_torch.prover import prover
+    from plonky2_ecdsa_tpu_torch.utils.debug import witness_violations
+
+    circuit = system.circuit
+    W = system.prover._expand_host(vals)                        # [wires, n, B] u64
+    t0 = time.time()
+    on_card = witness_violations(circuit, torch.from_numpy(W.view(np.int64)).to(dev))
+    card_s = time.time() - t0
+    assert not any(on_card.values()), f"the honest B={BATCH} witness has violations: {on_card}"
+    gi, g = next((gi, g) for gi, g in enumerate(circuit.gates)
+                 if isinstance(g, RangeLookupGate) and len(circuit.gate_rows[gi]))
+    bad = W.copy()
+    bad[g.wire_value(0), int(circuit.gate_rows[gi][0]), 5] = np.uint64((1 << 64) - 3)   # lane 5
+    t0 = time.time()
+    host = witness_violations(circuit, bad)
+    host_s = time.time() - t0
+    got = witness_violations(circuit, torch.from_numpy(bad.view(np.int64)).to(dev))
+    assert got == host and got["canonicity"] == 1 and got[f"range_{g.bits}"] > 0, (got, host)
+    os.environ["PLONKY2_TPU_DEBUG"] = "1"            # prover.prove checks the uploaded wires
+    try:
+        prover.prove(system.data, np.ascontiguousarray(bad[..., 4:6]), pis[4:6])
+    except AssertionError as e:
+        armed = str(e)
+    else:
+        raise AssertionError("PLONKY2_TPU_DEBUG=1 let a corrupted witness through prove")
+    finally:
+        del os.environ["PLONKY2_TPU_DEBUG"]
+    assert "canonicity" in armed and "range" in armed, armed
+    print(f"witness sanitizer on the card, the B={BATCH} witness {list(W.shape)}: {on_card} "
+          f"({card_s:.2f} s); one value set to 2^64 - 3 under a range_{g.bits} pool: card {got} "
+          f"== numpy ({host_s:.2f} s); prover.prove with PLONKY2_TPU_DEBUG=1 on lanes 4-5 "
+          f"raises: {armed}  ({card.line})")
+
+    rng = np.random.default_rng(SEED)
+    L = lb.num_limbs(256)
+    a = lb.from_ints([int.from_bytes(rng.bytes(32), "little") for _ in range(1024)], L)
+    b = lb.from_ints([int.from_bytes(rng.bytes(32), "little") for _ in range(1024)], L)
+    ta, tb = (torch.from_numpy(x.astype(np.int64)).to(dev) for x in (a, b))
+    for name, fn in (("mul", lb.mul), ("add", lb.add), ("sub", lambda x, y: lb.sub(x, y)[0]),
+                     ("borrow", lambda x, y: lb.sub(x, y)[1]),
+                     ("convert 16->29", lambda x, _y: lb.convert(x, 16, 29, 9))):
+        got = fn(ta, tb)
+        assert got.device == dev, got.device
+        assert np.array_equal(got.cpu().numpy().astype(np.uint32), fn(a, b)), \
+            f"limbs {name} on the card differs from numpy"
+    print(f"limbs on the card: mul, add, sub (with borrow), convert 16->29 on 1024 random 256-bit "
+          f"pairs equal the numpy half")
+
+
+# ---------------------------------------------------------------------------
+# the mesh (parallel/mesh.py) on the card: one card, so world 1 under NCCL and
+# ranks sharing cuda:0 under gloo; each rank a spawned process
+# ---------------------------------------------------------------------------
+
+MESH_TIMEOUT_S = 300
+# phase -> (backend, world, circuit, [(grid name, dcn or None, dp, col)])
+MESH_PHASES = {
+    "a": ("nccl", 1, "secp256k1", [("dp1_col1", None, 1, 1)]),
+    "b": ("gloo", 2, "secp256k1", [("dp2_col1", None, 2, 1), ("dp1_col2", None, 1, 2)]),
+    "c": ("gloo", 4, "demo", [("dp2_col2", None, 2, 2), ("dcn2_dp1_col2", 2, 1, 2)]),
+}
+
+
+def mesh_rank(rank, phase, tmp):
+    """One rank of a mesh phase (a spawned process): the circuit data and the
+    inputs from files the parent wrote, the kernels as the parent built them;
+    for each grid, this rank's kernel launches over one run (counts set to 0
+    just before it), the proof's digest, and for the B=32 grids a second,
+    timed run.  Results go to a JSON file; nothing is printed."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
+    from plonky2_ecdsa_tpu_torch.parallel import mesh
+    from plonky2_ecdsa_tpu_torch.prover import ntt_cuda, prover, serialize
+
+    backend, world, circuit, grids = MESH_PHASES[phase]
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store_{phase}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        out = {}
+        if backend == "gloo":
+            x = torch.full((3,), rank, dtype=torch.int64, device="cuda")
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            want = torch.arange(world, device="cuda").repeat_interleave(3)
+            assert torch.equal(torch.cat(parts), want), "gloo's CUDA all_gather is wrong"
+            out["gloo_cuda_all_gather"] = [str(p.device) for p in parts]
+        data = serialize.load_circuit_data(os.path.join(tmp, f"{circuit}.npz"), "cuda:0")
+        with np.load(os.path.join(tmp, f"{circuit}_inputs.npz")) as z:
+            inputs = {k: z[k] for k in z.files}
+        kernels = (poseidon_cuda.permute, poseidon_cuda.sponge, poseidon_cuda.grind,
+                   ntt_cuda.sub_ntt)
+        for name, dcn, dp, col in grids:
+            m = (mesh.prover_mesh(col_parallel=col) if dcn is None
+                 else mesh.prover_mesh_2level(dcn, dp * col, col_parallel=col))
+            run = mesh.make_mesh_prover(data, m)
+
+            def prove():
+                if circuit == "demo":
+                    return run(inputs["W"], inputs["pis"])
+                return run.run_vals(inputs["vals"], inputs["pis"])
+
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.time()
+            proof = prove()
+            first_s = time.time() - t0
+            res = dict(mesh=dict(zip(m.mesh_dim_names, m.shape)), digest=prover.proof_digest(proof),
+                       launches={fn.__name__: fn.launches for fn in kernels}, first_s=first_s)
+            if circuit != "demo":
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.time()
+                again = prove()
+                res["steady_s"] = time.time() - t0
+                assert prover.first_difference(proof, again) is None
+            out[name] = res
+        with open(os.path.join(tmp, f"{phase}_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_phase(phase, tmp):
+    """Spawn the phase's ranks; every one must exit 0 within MESH_TIMEOUT_S
+    (a rank still running then is killed and the run fails)."""
+    import torch.multiprocessing as torch_mp
+
+    ctx = torch_mp.get_context("spawn")
+    world = MESH_PHASES[phase][1]
+    procs = [ctx.Process(target=mesh_rank, args=(r, phase, tmp)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.time()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join()
+    assert not hung, f"mesh phase {phase}: ranks {hung} still running after {MESH_TIMEOUT_S} s"
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * world, f"mesh phase {phase}: exit codes {codes}"
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{phase}_{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_mesh(system, vals, pis, proof, dev, card, rows, anchors):
+    """The mesh phases: (a) NCCL, world 1; (b) gloo, world 2, both ranks on
+    cuda:0, grids (dp 2, col 1) and (dp 1, col 2), the B=32 secp256k1 main
+    path through make_mesh_prover(...).run_vals at full width, each grid's
+    digest the main path's; (c) gloo, world 4 on cuda:0, the demo circuit on
+    grids (dp 2, col 2) and (dcn 2, dp 1, col 2), the demo digest frozen from
+    the reference.  Every rank launched every kernel."""
+    from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_demo_witness
+    from plonky2_ecdsa_tpu_torch.prover import prover, serialize
+    from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
+
+    digests = {"secp256k1": prover.proof_digest(proof), "demo": anchors["demo_proof_sha256"]}
+    main_rows = {}                       # kernel -> its row at the main path's shapes (the first)
+    for r in rows:
+        main_rows.setdefault(r["fn"].__name__, r)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        serialize.save_circuit_data(system.data, os.path.join(tmp, "secp256k1.npz"))
+        np.savez(os.path.join(tmp, "secp256k1_inputs.npz"), vals=vals, pis=pis)
+        demo = small_demo_circuit().build()
+        W, dpis = small_demo_witness(demo, anchors["demo_batch"])
+        serialize.save_circuit_data(build_circuit_data(demo, dev), os.path.join(tmp, "demo.npz"))
+        np.savez(os.path.join(tmp, "demo_inputs.npz"), W=W, pis=dpis)
+        print(f"mesh: circuit data and inputs saved for the ranks in {time.time() - t0:.1f} s")
+        for phase, (backend, world, circuit, grids) in MESH_PHASES.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            ranks = run_mesh_phase(phase, tmp)
+            phase_s = time.time() - t0
+            if backend == "gloo":
+                print(f"mesh ({phase}): gloo's all_gather of CUDA tensors, with no staging in this "
+                      f"script or the library: correct values, outputs on "
+                      f"{ranks[0]['gloo_cuda_all_gather']}")
+            for name, _dcn, _dp, _col in grids:
+                per_rank = [res[name] for res in ranks]
+                for r, g in enumerate(per_rank):
+                    where = f"mesh ({phase}) {name} rank {r}"
+                    assert g["digest"] == digests[circuit], \
+                        f"{where}: the proof differs from the single-device one"
+                    assert all(v > 0 for v in g["launches"].values()), \
+                        f"{where}: a kernel was not launched: {g['launches']}"
+                for kernel, row in main_rows.items():
+                    row.setdefault("launches_mesh", {})[f"{phase}_{name}"] = \
+                        [g["launches"][kernel] for g in per_rank]
+                times = "; ".join(
+                    f"rank {r}: launches {g['launches']}, first {g['first_s']:.2f} s"
+                    + (f", then {g['steady_s']:.2f} s/batch" if "steady_s" in g else "")
+                    for r, g in enumerate(per_rank))
+                print(f"mesh ({phase}) {backend} world {world}, {circuit}, grid "
+                      f"{per_rank[0]['mesh']}: every rank's proof digest "
+                      f"{per_rank[0]['digest'][:16]}... equals the "
+                      f"{'main path' if circuit == 'secp256k1' else 'reference demo'} digest; "
+                      f"{times}  ({card.line})")
+            print(f"mesh ({phase}): {world} rank(s) spawned, run and joined in {phase_s:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1022,6 +1280,8 @@ def main() -> int:
     check_demo(dev, anchors)
     check_demo_recursion(dev, card, anchors)
     system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
+    check_sanitizer_and_limbs(system, vals, pis, dev, card)
+    check_mesh(system, vals, pis, proof, dev, card, rows, anchors)
     check_fallback(system, vals, pis, proof, card)
     check_command_line(system, dev, card)
     del vals, pis, proof

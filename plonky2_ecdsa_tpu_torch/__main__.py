@@ -32,8 +32,9 @@ from .curve import native as cn
 from .prover.serialize import load_circuit_data, load_proof, save_circuit_data, save_proof
 from .prover.verifier import verify
 
-# "standard" is the curve's own config (api.EcdsaProverSystem's choice)
-CONFIGS = {"standard": lambda: None, "wide": CircuitConfig.wide_ecc_config}
+# "standard" is standard_ecc_config for either curve, as the reference's command
+# line has it (the API's default for P-256 is p256_ecc_config)
+CONFIGS = {"standard": CircuitConfig.standard_ecc_config, "wide": CircuitConfig.wide_ecc_config}
 
 
 def _load_statements(path: str, curve) -> list:

@@ -130,13 +130,16 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_tensors(what: str, *tensors):
-    """Every tensor int64, contiguous, and on the CPU or a CUDA device."""
+def check_tensors(what: str, *tensors, contiguous: bool = True):
+    """Every tensor int64, on the CPU or a CUDA device, and contiguous unless
+    the kernel reads it by the caller's strides (contiguous=False)."""
     import torch
 
     for t in tensors:
-        if t.dtype != torch.int64 or not t.is_contiguous() or t.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"{what}: needs contiguous int64 CPU or CUDA tensors, got "
-                             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+        if (t.dtype != torch.int64 or (contiguous and not t.is_contiguous())
+                or t.device.type not in ("cpu", "cuda")):
+            raise ValueError(f"{what}: needs {'contiguous ' if contiguous else ''}int64 CPU or "
+                             f"CUDA tensors, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
         if t.device != tensors[0].device:
             raise ValueError(f"{what}: tensors on {t.device} and {tensors[0].device}")

@@ -9,6 +9,7 @@ tape, prover and verifier.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,15 +59,17 @@ class EcdsaStatement:
 class EcdsaProverSystem:
     """The ECDSA-verify circuit for one curve and config, proved and verified
     on `device`.  Without a config, P-256 takes p256_ecc_config and secp256k1
-    standard_ecc_config.
+    standard_ecc_config.  `build_seconds` is the circuit build's time; with
+    `verbose` it is printed with the row count and n.
 
     Public inputs, in order: pk.x, pk.y, msg, r, s (45 limbs of 29 bits), so a
     proof binds the statement "signature (r, s) on msg verifies under pk"."""
 
     def __init__(self, curve: cn.CurveParams = cn.SECP256K1,
-                 config: CircuitConfig | None = None, device="cuda"):
+                 config: CircuitConfig | None = None, device="cuda", verbose: bool = False):
         self.curve = curve
         self.device = device
+        t0 = time.time()
         if config is None:
             config = (CircuitConfig.p256_ecc_config() if curve is cn.P256
                       else CircuitConfig.standard_ecc_config())
@@ -93,6 +96,10 @@ class EcdsaProverSystem:
         else:
             raise ValueError(f"unsupported curve {curve.name}")
         self.circuit = b.build()
+        self.build_seconds = time.time() - t0
+        if verbose:
+            print(f"[api] {curve.name} circuit: {len(b.rows)} rows -> n={self.circuit.n} "
+                  f"({self.build_seconds:.1f}s build)")
         self._data: CircuitData | None = None
         self._prover: Prover | None = None
 
@@ -145,10 +152,11 @@ class EcdsaProverSystem:
         return vals, self.circuit.public_input_values()
 
     def check(self, stmts) -> bool:
-        """Whether the statements' witness satisfies every gate constraint
-        (on the host, no proof)."""
+        """True when the statements' witness satisfies every gate constraint
+        (on the host, no proof); raises AssertionError naming the first
+        violated constraint otherwise."""
         W, pis = self.witness(stmts)
-        return check_constraints(self.circuit, W, pis, raise_on_fail=False) == {}
+        return check_constraints(self.circuit, W, pis) == {}
 
     # ---------------------------------------------------------- prove, verify
     def prove(self, stmts) -> Proof:

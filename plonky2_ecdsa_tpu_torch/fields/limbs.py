@@ -16,16 +16,63 @@ Two limb widths coexist:
 `convert` mirrors the semantics of the reference's `convert_base`
 (src/gadgets/biguint.rs:27-51) but is shape-static and vectorized.
 
-Counterpart of ``plonky2_ecdsa_tpu.fields.limbs``, numpy only: this is the
-host witness engine (the reference's jax.numpy branches are not carried).
+Counterpart of ``plonky2_ecdsa_tpu.fields.limbs``.  Every function takes numpy
+arrays (the host witness engine, u32 containers) or torch tensors on any
+device (int64 containers; the reference's jax.numpy half).  numpy wraps
+modulo 2^32 in its containers; the tensor code masks where numpy would wrap
+(sums, sub's borrows, mul's products and accumulators), so a result turned
+back into u32 equals the numpy half's.  A numpy constant met beside a tensor
+is moved to the tensor's device.  Not on any proving path.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 BITS = 16
 MASK = np.uint32(0xFFFF)
+_M32 = 0xFFFFFFFF
+
+
+def _device(*arrays):
+    """The device of the first tensor among `arrays`, or None (all numpy)."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return None
+
+
+def _on(x, dev):
+    """x as the container of `dev`: unchanged for numpy (dev None), else an
+    int64 tensor on dev."""
+    if dev is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x).astype(np.int64), device=dev)
+
+
+def _zeros(shape, dev):
+    if dev is None:
+        return np.zeros(shape, dtype=np.uint32)
+    return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+
+def _cat(xs, dev):
+    return np.concatenate(xs, axis=-1) if dev is None else torch.cat(xs, -1)
+
+
+def _stack(xs, dev):
+    return np.stack(xs, axis=-1) if dev is None else torch.stack(xs, -1)
+
+
+def _wrap(x, dev):
+    """numpy's u32 wrap of a sum or product: nothing to do on numpy."""
+    return x if dev is None else x & _M32
+
+
+def _flag(b, dev):
+    """A boolean array as 0/1 limbs."""
+    return b.astype(np.uint32) if dev is None else b.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -36,12 +83,14 @@ def num_limbs(bit_len: int, bits: int = BITS) -> int:
     return -(-bit_len // bits)
 
 
-def from_int(v: int, L: int, bits: int = BITS, shape=()):
-    """Python int -> broadcast limb tensor of shape (*shape, L)."""
+def from_int(v: int, L: int, bits: int = BITS, shape=(), device=None):
+    """Python int -> broadcast limb tensor of shape (*shape, L): numpy, or a
+    tensor on `device`."""
     assert v >= 0 and v < 1 << (bits * L), (v, L, bits)
-    limbs = [(v >> (bits * i)) & ((1 << bits) - 1) for i in range(L)]
-    arr = np.asarray(np.array(limbs, dtype=np.uint32))
-    return np.broadcast_to(arr, tuple(shape) + (L,))
+    limbs = np.array([(v >> (bits * i)) & ((1 << bits) - 1) for i in range(L)], dtype=np.uint32)
+    if device is None:
+        return np.broadcast_to(limbs, tuple(shape) + (L,))
+    return _on(limbs, torch.device(device)).expand(tuple(shape) + (L,))
 
 
 def from_ints(vals, L: int, bits: int = BITS):
@@ -56,8 +105,9 @@ def from_ints(vals, L: int, bits: int = BITS):
 
 
 def to_ints(x, bits: int = BITS):
-    """[..., L] limb tensor -> nested list of Python ints (host only)."""
-    x = np.asarray(x)
+    """[..., L] limb tensor (numpy, or a tensor on any device) -> nested list
+    of Python ints (host only)."""
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     flat = x.reshape(-1, x.shape[-1])
     res = [sum(int(l) << (bits * j) for j, l in enumerate(row)) for row in flat]
     out = np.empty(len(res), dtype=object)
@@ -74,23 +124,22 @@ def normalize(x, bits: int = BITS):
 
     Loops until no carry is left.
     """
+    dev = _device(x)
     while True:
         carry = x >> bits
         if not carry.any():
             return x
         assert not carry[..., -1].any(), "normalize overflow in top limb"
-        x = (x & np.uint32((1 << bits) - 1)) + np.concatenate(
-            [np.zeros_like(carry[..., :1]), carry[..., :-1]], axis=-1
-        )
+        x = _wrap((x & ((1 << bits) - 1)) + _cat([_zeros(carry.shape[:-1] + (1,), dev),
+                                                  carry[..., :-1]], dev), dev)
 
 
 def add(a, b, bits: int = BITS):
     """a + b -> limb tensor of length max(La, Lb) + 1 (no truncation)."""
-    La, Lb = a.shape[-1], b.shape[-1]
-    L = max(La, Lb) + 1
-    pa = np.concatenate([a, np.zeros(a.shape[:-1] + (L - La,), dtype=np.uint32)], axis=-1)
-    pb = np.concatenate([b, np.zeros(b.shape[:-1] + (L - Lb,), dtype=np.uint32)], axis=-1)
-    return normalize(pa + pb, bits)
+    dev = _device(a, b)
+    a, b = _on(a, dev), _on(b, dev)
+    L = max(a.shape[-1], b.shape[-1]) + 1
+    return normalize(_wrap(resize(a, L) + resize(b, L), dev), bits)
 
 
 def sub(a, b, bits: int = BITS):
@@ -100,54 +149,55 @@ def sub(a, b, bits: int = BITS):
     result when b > a.
     """
     assert a.shape[-1] == b.shape[-1], (a.shape, b.shape)
+    dev = _device(a, b)
+    a, b = _on(a, dev), _on(b, dev)
     L = a.shape[-1]
-    base = np.uint32(1 << bits)
+    base = 1 << bits
     outs = []
-    borrow = np.zeros(np.broadcast_shapes(a.shape[:-1], b.shape[:-1]), dtype=np.uint32)
+    borrow = _zeros(np.broadcast_shapes(a.shape[:-1], b.shape[:-1]), dev)
     for i in range(L):
-        d = base + a[..., i] - b[..., i] - borrow
-        outs.append(d & np.uint32((1 << bits) - 1))
-        borrow = (d < base).astype(np.uint32)
-    return np.stack(outs, axis=-1), borrow
+        d = _wrap(np.uint32(base) + a[..., i] - b[..., i] - borrow if dev is None
+                  else base + a[..., i] - b[..., i] - borrow, dev)
+        outs.append(d & ((1 << bits) - 1))
+        borrow = _flag(d < base, dev)
+    return _stack(outs, dev), borrow
 
 
 def lt(a, b, bits: int = BITS):
-    """a < b as uint32 0/1 (lexicographic, equal lengths padded)."""
-    La, Lb = a.shape[-1], b.shape[-1]
-    L = max(La, Lb)
-    if La < L:
-        a = np.concatenate([a, np.zeros(a.shape[:-1] + (L - La,), dtype=np.uint32)], axis=-1)
-    if Lb < L:
-        b = np.concatenate([b, np.zeros(b.shape[:-1] + (L - Lb,), dtype=np.uint32)], axis=-1)
-    _, borrow = sub(a, b, bits)
+    """a < b as 0/1 (lexicographic, equal lengths padded)."""
+    L = max(a.shape[-1], b.shape[-1])
+    _, borrow = sub(resize(a, L), resize(b, L), bits)
     return borrow
 
 
 def le(a, b, bits: int = BITS):
-    return np.uint32(1) - lt(b, a, bits)
+    return 1 - lt(b, a, bits)
 
 
 def eq(a, b):
-    La, Lb = a.shape[-1], b.shape[-1]
-    L = max(La, Lb)
-    if La < L:
-        a = np.concatenate([a, np.zeros(a.shape[:-1] + (L - La,), dtype=np.uint32)], axis=-1)
-    if Lb < L:
-        b = np.concatenate([b, np.zeros(b.shape[:-1] + (L - Lb,), dtype=np.uint32)], axis=-1)
-    return np.all(a == b, axis=-1).astype(np.uint32)
+    dev = _device(a, b)
+    a, b = _on(a, dev), _on(b, dev)
+    L = max(a.shape[-1], b.shape[-1])
+    return _flag((resize(a, L) == resize(b, L)).all(-1), dev)
 
 
 def is_zero(a):
-    return np.all(a == 0, axis=-1).astype(np.uint32)
+    return _flag((a == 0).all(-1), _device(a))
 
 
 def select(cond, a, b):
     """cond ? a : b, cond shape broadcastable to limb tensors' batch shape."""
-    return np.where(cond[..., None].astype(bool), a, b)
+    dev = _device(cond, a, b)
+    if dev is None:
+        return np.where(cond[..., None].astype(bool), a, b)
+    cond, a, b = _on(cond, dev), _on(a, dev), _on(b, dev)
+    return torch.where(cond[..., None].bool(), a, b)
 
 
 def mul_bool(a, cond):
-    return a * cond[..., None].astype(np.uint32)
+    dev = _device(a, cond)
+    a, cond = _on(a, dev), _on(cond, dev)
+    return a * (cond[..., None].astype(np.uint32) if dev is None else cond[..., None])
 
 
 def mul(a, b, bits: int = BITS):
@@ -158,20 +208,22 @@ def mul(a, b, bits: int = BITS):
     2^(32-bits) terms are safe — far above any size used here).
     """
     assert bits <= 16
+    dev = _device(a, b)
+    a, b = _on(a, dev), _on(b, dev)
     La, Lb = a.shape[-1], b.shape[-1]
     L = La + Lb
     shape = np.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    acc_lo = np.zeros(shape + (L,), dtype=np.uint32)
-    acc_hi = np.zeros(shape + (L,), dtype=np.uint32)
-    m = np.uint32((1 << bits) - 1)
+    acc_lo = _zeros(shape + (L,), dev)
+    acc_hi = _zeros(shape + (L,), dev)
+    m = (1 << bits) - 1
     for i in range(La):
-        p = a[..., i : i + 1] * b  # [..., Lb], each < 2^(2*bits)
-        lo, hi = p & m, p >> bits
-        acc_lo[..., i : i + Lb] += lo
-        acc_hi[..., i : i + Lb] += hi
+        p = _wrap(a[..., i : i + 1] * b, dev)  # [..., Lb], each < 2^(2*bits)
+        acc_lo[..., i : i + Lb] += p & m
+        acc_hi[..., i : i + Lb] += p >> bits
+    acc_lo, acc_hi = _wrap(acc_lo, dev), _wrap(acc_hi, dev)
     # limb k total = acc_lo[k] + acc_hi[k-1]
-    shifted = np.concatenate([np.zeros_like(acc_hi[..., :1]), acc_hi[..., :-1]], axis=-1)
-    return normalize(acc_lo + shifted, bits)
+    shifted = _cat([_zeros(shape + (1,), dev), acc_hi[..., :-1]], dev)
+    return normalize(_wrap(acc_lo + shifted, dev), bits)
 
 
 def resize(a, L: int):
@@ -180,7 +232,8 @@ def resize(a, L: int):
     if La == L:
         return a
     if La < L:
-        return np.concatenate([a, np.zeros(a.shape[:-1] + (L - La,), dtype=np.uint32)], axis=-1)
+        dev = _device(a)
+        return _cat([a, _zeros(a.shape[:-1] + (L - La,), dev)], dev)
     return a[..., :L]
 
 
@@ -192,6 +245,7 @@ def convert(x, from_bits: int, to_bits: int, Lout: int):
     """Repack limb widths, e.g. 16 <-> 29 bits. Exact; masks before shifting
     so no intermediate exceeds u32. Mirrors reference convert_base semantics
     (src/gadgets/biguint.rs:27-51) with a fixed output length."""
+    dev = _device(x)
     Lin = x.shape[-1]
     mask_to = (1 << to_bits) - 1
     outs = []
@@ -210,13 +264,13 @@ def convert(x, from_bits: int, to_bits: int, Lout: int):
                     term = xi >> (-shift)
                 else:
                     pre = (mask_to >> shift) & ((1 << from_bits) - 1)
-                    term = (xi & np.uint32(pre)) << shift
+                    term = (xi & (np.uint32(pre) if dev is None else pre)) << shift
                 acc = term if acc is None else acc | term
             t += 1
         if acc is None:
-            acc = np.zeros(x.shape[:-1], dtype=np.uint32)
-        outs.append(acc & np.uint32(mask_to))
-    return np.stack(outs, axis=-1)
+            acc = _zeros(x.shape[:-1], dev)
+        outs.append(acc & (np.uint32(mask_to) if dev is None else mask_to))
+    return _stack(outs, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -251,9 +305,10 @@ class Modulus:
         """x: [..., <=Lx] limbs -> (q [..., Lq], r [..., L]) with x = q*m + r,
         0 <= r < m. Exact for any x < 2^max_x_bits."""
         assert x.shape[-1] <= self.Lx, (x.shape, self.Lx)
+        dev = _device(x)
         x = resize(x, self.Lx)
-        mu = np.asarray(self.mu_limbs)
-        ml = np.asarray(self.m_limbs)
+        mu = _on(np.asarray(self.mu_limbs), dev)
+        ml = _on(np.asarray(self.m_limbs), dev)
         prod = mul(x, mu)  # [..., Lx + Lmu]
         qhat = prod[..., self.Lx :]  # floor(x*mu / 2^S); q - qhat in {0,1,2}
         qhat = resize(qhat, self.Lq)
@@ -262,10 +317,10 @@ class Modulus:
         # r < 3m, fits in L+1 limbs
         r = resize(r_full, self.L + 1)
         q = qhat
-        one = from_int(1, self.Lq)
+        one = from_int(1, self.Lq, device=dev)
         mpad = resize(ml, self.L + 1)
         for _ in range(2):
-            ge = np.uint32(1) - lt(r, mpad)
+            ge = 1 - lt(r, mpad)
             r2, _ = sub(r, mul_bool(mpad, ge))
             r = r2
             q = resize(add(q, mul_bool(one, ge)), self.Lq)
@@ -278,19 +333,19 @@ class Modulus:
     def mod_add(self, a, b):
         """(a+b) mod m -> (r, overflow 0/1); a, b must be < m."""
         s = add(resize(a, self.L), resize(b, self.L))
-        mpad = np.asarray(resize(self.m_limbs, self.L + 1))
-        ge = np.uint32(1) - lt(s, mpad)
+        mpad = _on(np.asarray(resize(self.m_limbs, self.L + 1)), _device(s))
+        ge = 1 - lt(s, mpad)
         r, _ = sub(s, mul_bool(mpad, ge))
         return resize(r, self.L), ge
 
     def mod_sub(self, a, b):
         """(a-b) mod m -> (r, underflow 0/1); a, b must be < m."""
         d, borrow = sub(resize(a, self.L), resize(b, self.L))
-        r = resize(add(d, mul_bool(np.asarray(self.m_limbs), borrow)), self.L)
+        r = resize(add(d, mul_bool(self.m_limbs, borrow)), self.L)
         return r, borrow
 
     def mod_neg(self, a):
-        nz = np.uint32(1) - is_zero(a)
+        nz = 1 - is_zero(a)
         d, _ = sub(mul_bool(self.m_limbs, nz), resize(a, self.L))
         return d
 
@@ -301,14 +356,14 @@ class Modulus:
         ints = to_ints(a)
         flat = np.ravel(ints)
         inv = [pow(int(v), -1, self.m) if int(v) % self.m != 0 else 0 for v in flat]
-        inv_arr = from_ints(inv, self.L).reshape(np.shape(ints) + (self.L,))
+        inv_arr = _on(from_ints(inv, self.L).reshape(np.shape(ints) + (self.L,)), _device(a))
         prods = mul(resize(a, self.L), inv_arr)
         q, r = self.divmod(prods)
         return inv_arr, q
 
     def pow_mod(self, a, e: int):
         """a^e mod m (square-and-multiply over mod_mul)."""
-        r = from_int(1, self.L, shape=a.shape[:-1])
+        r = from_int(1, self.L, shape=a.shape[:-1], device=_device(a))
         base = resize(a, self.L)
         while e:
             if e & 1:

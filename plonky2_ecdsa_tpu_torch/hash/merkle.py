@@ -47,10 +47,10 @@ def hash_leaves(leaves):
 
 
 def leaf_digests_from_polys(lde):
-    """Poly-major LDE [..., k, N] (contiguous, on either device) -> leaf
-    digests [..., N, 4]: leaf j is the sponge over the k polynomial values at
-    domain point j, read in place (no leaf-major copy of the LDE; one sponge
-    launch on CUDA)."""
+    """Poly-major LDE [..., k, N] (contiguous, or a view such as a slice of
+    the domain axis; on either device) -> leaf digests [..., N, 4]: leaf j is
+    the sponge over the k polynomial values at domain point j, read in place
+    (no leaf-major copy of the LDE; one sponge launch on CUDA)."""
     return poseidon_cuda.sponge(lde, "poly")
 
 

@@ -94,10 +94,31 @@ def sponge_plain(x, layout: str):
     return state[:4] if layout == "stacked" else state[:4].movedim(0, -1).contiguous()
 
 
+def _poly_strides(x):
+    """(batches, batch stride) of a poly-major view [..., k, N]: its leading
+    axes must flatten to one stride (a slice of the last axis, as a rank's
+    domain slice of an LDE, does)."""
+    batches, sb = 1, 0
+    for size, stride in reversed(list(zip(x.shape[:-2], x.stride()[:-2]))):
+        if size == 1:
+            continue
+        if batches == 1:
+            sb = stride
+        elif stride != sb * batches:
+            raise ValueError(f"sponge: the leading axes of a view {tuple(x.shape)} with strides "
+                             f"{x.stride()} do not flatten to one stride")
+        batches *= size
+    return batches, sb
+
+
 def sponge(x, layout: str):
-    """sponge_plain's digests: one kernel launch on CUDA, whatever k.  x must
-    be contiguous on either device, as the kernel needs it."""
-    _build.check_tensors("poseidon2 sponge", x)
+    """sponge_plain's digests: one kernel launch on CUDA, whatever k.  For
+    "leaf" and "stacked" x must be contiguous; a "poly" x may be any view
+    whose leading axes flatten to one stride: the kernel reads it in place by
+    its strides (a rank's domain slice of an LDE is hashed with no copy; the
+    kernel takes its 16-byte loads only where the pointer and the strides
+    allow them)."""
+    _build.check_tensors("poseidon2 sponge", x, contiguous=layout != "poly")
     elems = _stacked(x, layout)
     k = elems.shape[0]
     if k == 0:
@@ -108,7 +129,8 @@ def sponge(x, layout: str):
     # (word, leaf); leaf g = batch * points + point
     if layout == "poly":
         points = x.shape[-1]
-        batches, strides = x.numel() // (k * points), (k * points, points, 1, 1, 4)
+        batches, sb = _poly_strides(x)
+        strides = (sb, x.stride(-2), x.stride(-1), 1, 4)
         out = torch.empty(x.shape[:-2] + (points, 4), dtype=torch.int64, device=x.device)
     elif layout == "leaf":
         batches, points, strides = 1, x.numel() // k, (0, 1, k, 1, 4)

@@ -2,27 +2,34 @@
 
 Counterpart of ``plonky2_ecdsa_tpu.prover.prover``: ``prove_core`` mirrors the
 reference's prove_core (prover.py:458-657) stage by stage, with the same
-``stop_after`` knobs, and ``make_prover`` its make_jit_prover (prover.py:855)
-with the production ``run_vals`` path: the tape's compact value table goes
-up, the wires are expanded on the device, and the proof comes back as a host
+``stop_after`` knobs and the col axis of a device mesh (``shard``, see
+``parallel/mesh.py``), and ``make_prover`` its make_jit_prover (prover.py:855)
+with the production ``run_vals`` path: the tape's compact value table goes up,
+the wires are expanded on the device, and the proof comes back as a host
 ``Proof`` of numpy u64 arrays (extension values as (c0, c1) tuples).  Field
-arithmetic is exact, so for the same witness the proof equals the
-reference's value for value.
+arithmetic is exact, so for the same witness the proof equals the reference's
+value for value, sharded or not.  The reference's streamed commit
+(``stream_commit``) has no counterpart: it bounds the commit's temporaries,
+and on an 80 GB H100 the batch's peak device memory is set later, by the
+quotient, with or without it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..circuit.algebra import TorchAlgebra
 from ..circuit.gates import PublicInputGate
 from ..fields import goldilocks as gl
 from ..hash import merkle
+from ..utils.debug import assert_witness_ok
 from . import fri, ntt
 from .challenger import GRIND_EXHAUSTED, Challenger
 from .data import Backend, CircuitData
@@ -138,6 +145,59 @@ def _lde_commit(vals, N: int, cap_height: int):
     return coeffs, lde, merkle.build_merkle_tree_from_polys(lde, cap_height)
 
 
+# ---------------------------------------------------------------------------
+# the col axis of a mesh (prover.py:209-256): `shard` is (process group,
+# n_shards).  The column axis is split for the INTT and LDE, the domain axis
+# for the pointwise stages (leaf sponge, quotient, FRI reduced polynomial),
+# with an all_gather at each stage's end; the rest runs replicated, so every
+# rank's proof is the single-device proof.
+# ---------------------------------------------------------------------------
+
+def _shard_range(size: int, shard):
+    """This rank's [lo, hi) of `size` positions split evenly over the shards."""
+    group, ns = shard
+    part = size // ns
+    lo = dist.get_rank(group) * part
+    return lo, lo + part
+
+
+def _shard_slice(x, shard, dim: int):
+    """This rank's 1/ns of x along dim, as a view."""
+    lo, hi = _shard_range(x.shape[dim], shard)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _shard_gather(x, shard, dim: int):
+    """Every rank's x joined in rank order along dim (list all_gather and
+    torch.cat: the same under gloo and NCCL)."""
+    group, ns = shard
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ns)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def _tree_sharded(lde, cap_height: int, shard) -> merkle.MerkleTree:
+    """Tree over a poly-major LDE [B, k, N]: each rank hashes the leaves of
+    its N/ns domain slice (a strided view, read in place), the digests are
+    gathered, and every rank builds the same tree."""
+    digests = merkle.leaf_digests_from_polys(_shard_slice(lde, shard, -1))
+    return merkle.build_tree_from_digests(_shard_gather(digests, shard, -2), cap_height)
+
+
+def _lde_commit_sharded(vals, N: int, cap_height: int, shard):
+    """_lde_commit with the columns split over the shards for the INTT and
+    LDE (left whole where ns does not divide them) and the domain split for
+    the leaf hashing; the same output on every rank."""
+    split_cols = vals.shape[1] % shard[1] == 0
+    loc = _shard_slice(vals, shard, 1).contiguous() if split_cols else vals
+    coeffs = ntt.intt(loc)
+    lde = ntt.coset_ntt_from_coeffs(coeffs, N)
+    if split_cols:
+        coeffs, lde = _shard_gather(coeffs, shard, 1), _shard_gather(lde, shard, 1)
+    return coeffs, lde, _tree_sharded(lde, cap_height, shard)
+
+
 def _z_columns(data):
     """zs columns opened at g*zeta: each challenge's permutation Z, then
     each challenge's LogUp running sum."""
@@ -210,13 +270,28 @@ def _lookup_polys_all(data, wires, alphas):
 # quotient (prover.py:1165) and the FRI reduced polynomial (prover.py:1406)
 # ---------------------------------------------------------------------------
 
-def _chunks(N: int):
-    return [slice(s, min(N, s + DOMAIN_CHUNK)) for s in range(0, N, DOMAIN_CHUNK)]
+def _chunks(N: int, shard=None):
+    """The domain slices one pass evaluates: all of [0, N), or with a shard
+    this rank's [lo, hi) of it (prover.py:1360-1381)."""
+    lo, hi = (0, N) if shard is None else _shard_range(N, shard)
+    return [slice(s, min(hi, s + DOMAIN_CHUNK)) for s in range(lo, hi, DOMAIN_CHUNK)]
+
+
+def _over_domain(eval_chunk, N: int, shard):
+    """eval_chunk (a tuple of tensors per domain slice) over the domain in
+    DOMAIN_CHUNK slices, each output joined on the last axis; with a shard
+    over this rank's slice of the domain, then gathered."""
+    outs = [eval_chunk(sl) for sl in _chunks(N, shard)]
+    joined = [torch.cat(parts, -1) for parts in zip(*outs)]
+    if shard is not None:
+        joined = [_shard_gather(j, shard, -1) for j in joined]
+    return joined
 
 
 def _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas, gammas,
-                      alphas, lk_alphas):
-    """Combined constraints / Z_H over the LDE coset -> [B, C, N]."""
+                      alphas, lk_alphas, shard=None):
+    """Combined constraints / Z_H over the LDE coset -> [B, C, N]; with a
+    shard each rank evaluates its domain slice and the slices are gathered."""
     circuit = data.circuit
     cfg = circuit.config
     n, N = data.n, data.N
@@ -309,15 +384,16 @@ def _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas, gammas,
                                                  ap[:, base_slot + 2 + nb:base_slot + 3 + nb]))
 
         zh = bk.zh_inv[sl]
-        return torch.stack([gl.mul(q, zh) for q in comb], 1)
+        return (torch.stack([gl.mul(q, zh) for q in comb], 1),)
 
-    return torch.cat([eval_chunk(sl) for sl in _chunks(N)], -1)
+    return _over_domain(eval_chunk, N, shard)[0]
 
 
 def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
-                  open_zs_gzeta, zeta, gzeta, alpha, z_idx):
+                  open_zs_gzeta, zeta, gzeta, alpha, z_idx, shard=None):
     """F(x) = sum_i a^i (p_i(x) - y_i) / (x - zeta)
-            + a^T sum_j a^j (z_j(x) - y'_j) / (x - g zeta)   -> ext [B, N]."""
+            + a^T sum_j a^j (z_j(x) - y'_j) / (x - g zeta)   -> ext [B, N];
+    with a shard each rank evaluates its domain slice (prover.py:1474-1496)."""
     N = data.N
     T = layout.total
     B = wires_lde.shape[0]
@@ -347,8 +423,7 @@ def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
                      for i in range(2))
         return gl.ext_add(F, gl.ext_mul(bc(apow_T), gl.ext_mul(acc1, inv1)))
 
-    parts = [eval_chunk(sl) for sl in _chunks(N)]
-    return (torch.cat([p[0] for p in parts], -1), torch.cat([p[1] for p in parts], -1))
+    return tuple(_over_domain(eval_chunk, N, shard))
 
 
 # ---------------------------------------------------------------------------
@@ -358,10 +433,15 @@ def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
 STOP_AFTER = ("commit", "challenges", "zs_vals", "zs", "quotient", "openings", "fri_all")
 
 
-def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None):
+def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
+               shard=None):
     """(wires [B, W, n], PI polys [B, K, n], PI values [B, npis]) int64 on
     the backend's device -> Proof of int64 tensors (see to_host).
-    stop_after: one of STOP_AFTER, to compare one stage with the reference."""
+    stop_after: one of STOP_AFTER, to compare one stage with the reference.
+    shard: (process group, n_shards) of the mesh's col axis: the commits'
+    columns and the pointwise stages' domain are split over the group's
+    ranks, every other stage runs replicated, and every rank returns the
+    single-device proof."""
     assert stop_after in (None,) + STOP_AFTER, stop_after
     cfg = data.circuit.config
     n, N = data.n, data.N
@@ -373,7 +453,10 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None)
     caph = cfg.fri.cap_height
     dev = wires.device
 
-    wires_coeffs, wires_lde, wires_tree = _lde_commit(wires, N, caph)
+    if shard is not None:
+        wires_coeffs, wires_lde, wires_tree = _lde_commit_sharded(wires, N, caph, shard)
+    else:
+        wires_coeffs, wires_lde, wires_tree = _lde_commit(wires, N, caph)
     if stop_after == "commit":
         return wires_tree.cap
     pi_lde = ntt.coset_ntt_from_coeffs(ntt.intt(pi), N)
@@ -414,7 +497,10 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None)
     zs_vals = torch.stack(zs_list, 1)
     if stop_after == "zs_vals":
         return zs_vals
-    zs_coeffs, zs_lde, zs_tree = _lde_commit(zs_vals, N, caph)
+    if shard is not None:
+        zs_coeffs, zs_lde, zs_tree = _lde_commit_sharded(zs_vals, N, caph, shard)
+    else:
+        zs_coeffs, zs_lde, zs_tree = _lde_commit(zs_vals, N, caph)
     if stop_after == "zs":
         return zs_tree.cap
     ch.observe_cap(zs_tree.cap)
@@ -422,11 +508,14 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None)
 
     # ---- quotient -----------------------------------------------------------
     quot_vals = _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas,
-                                  gammas, alphas, lk_alphas)
+                                  gammas, alphas, lk_alphas, shard)
     rate = N // n
     chunks = ntt.coset_intt(quot_vals).reshape(B, C * rate, n)
     quot_lde = ntt.coset_ntt_from_coeffs(chunks, N)
-    quot_tree = merkle.build_merkle_tree_from_polys(quot_lde, caph)
+    if shard is not None:
+        quot_tree = _tree_sharded(quot_lde, caph, shard)
+    else:
+        quot_tree = merkle.build_merkle_tree_from_polys(quot_lde, caph)
     ch.observe_cap(quot_tree.cap)
     if stop_after == "quotient":
         return quot_tree.cap
@@ -451,7 +540,7 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None)
 
     # ---- FRI ----------------------------------------------------------------
     F = _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
-                      open_zs_gzeta, zeta, gz, ch.get_ext(), z_idx)
+                      open_zs_gzeta, zeta, gz, ch.get_ext(), z_idx, shard)
     fri_proof = fri.fri_prove(ch, F, N, cfg)
     if stop_after == "fri_all":
         return fri_proof
@@ -591,8 +680,13 @@ def _inputs_to_device(data, W, pis):
 
 def prove(data: CircuitData, W, pis: np.ndarray) -> Proof:
     """W: witness [num_wires, n, B] u64 (host); pis [B, npis] u64 -> host
-    Proof, computed on the data's device."""
-    proof = to_host(prove_core(data, Backend(data), *_inputs_to_device(data, W, pis)), pis)
+    Proof, computed on the data's device.  With PLONKY2_TPU_DEBUG=1 the
+    witness sanitizer first checks the uploaded wires on the device and
+    raises AssertionError naming each violated class (prover.py:442)."""
+    wires, pi, pis_dev = _inputs_to_device(data, W, pis)
+    if os.environ.get("PLONKY2_TPU_DEBUG") == "1":
+        assert_witness_ok(data.circuit, wires.permute(1, 2, 0))     # [wires, n, B] view
+    proof = to_host(prove_core(data, Backend(data), wires, pi, pis_dev), pis)
     check_grind(proof)
     return proof
 
@@ -685,10 +779,12 @@ class Prover:
     compacted table goes up (a u32 plane for the values statically known
     below 2^32, u64 for the rest, range-lookup limbs dropped), the wire,
     PI-polynomial and PI tensors are gathered and the limbs re-derived on the
-    device, and the proof comes back as a host Proof."""
+    device, and the proof comes back as a host Proof.  shard is prove_core's
+    (the mesh prover passes its col axis)."""
 
-    def __init__(self, data: CircuitData):
+    def __init__(self, data: CircuitData, shard=None):
         self.data = data
+        self.shard = shard
         self.device = dev = data.device
         self.backend = Backend(data)
         (imap, imap_pi, pit, keep_ids, num_narrow, rows_arrays,
@@ -749,6 +845,12 @@ class Prover:
         vz = np.concatenate([vals, np.zeros((1, B), np.uint64)])
         return vz[self._host_map].reshape(num_wires, n, B)
 
+    def dispatch(self, W: np.ndarray, pis: np.ndarray):
+        """Upload a full witness W [num_wires, n, B] u64 and enqueue the
+        prove; returns a handle for collect()."""
+        wires, pi, pis_dev = _inputs_to_device(self.data, W, pis)
+        return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
+
     def dispatch_vals(self, vals: np.ndarray, pis: np.ndarray):
         """Upload the compact table and enqueue the prove; returns a handle
         for collect().  On a narrow-plane violation the batch is not lost: a
@@ -760,11 +862,10 @@ class Prover:
         except NarrowMisclassification as e:
             print(f"[prover] WARNING: {e}; falling back to the wide witness "
                   "path for this batch", file=sys.stderr)
-            wires, pi, pis_dev = _inputs_to_device(self.data, self._expand_host(vals), pis)
-        else:
-            narrow = torch.from_numpy(vn.view(np.int32)).to(self.device)
-            wires, pi, pis_dev = self._expand(narrow, gl.from_u64(vw, self.device))
-        return prove_core(self.data, self.backend, wires, pi, pis_dev), pis
+            return self.dispatch(self._expand_host(vals), pis)
+        narrow = torch.from_numpy(vn.view(np.int32)).to(self.device)
+        wires, pi, pis_dev = self._expand(narrow, gl.from_u64(vw, self.device))
+        return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
 
     def collect(self, handle) -> Proof:
         proof, pis = handle

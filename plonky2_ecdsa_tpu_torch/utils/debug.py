@@ -1,5 +1,6 @@
-"""Witness sanitizer: range checks over a whole witness batch, on numpy; and
-digests of a circuit's structure and of a value table.
+"""Witness sanitizer: range checks over a whole witness batch, on numpy or on
+int64 tensors on any device; and digests of a circuit's structure and of a
+value table.
 
 Counterpart of ``plonky2_ecdsa_tpu.utils.debug``.  ``witness_violations``
 validates a witness matrix against the contracts the proof system ASSUMES of
@@ -12,7 +13,8 @@ an honest witness:
 
 A violation means a fault in a witness generator: the proof would fail
 anyway, but with an opaque quotient or lookup mismatch; this reports counts
-per class instead.  It does not evaluate the gates: a witness that is well
+per class instead.  ``prover.prove`` runs it on the uploaded wires when
+PLONKY2_TPU_DEBUG=1.  It does not evaluate the gates: a witness that is well
 formed but wrong for the circuit (a tampered inner proof fed to a verifier
 circuit) passes here and fails ``circuit.witness.check_constraints``.
 
@@ -27,44 +29,101 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+import torch
 
 from ..circuit.gates import RangeLookupGate
 from ..fields import goldilocks as gl
 
+_M64 = (1 << 64) - 1
+
+
+class _NumpyU64:
+    """The sanitizer's three primitives on numpy u64 arrays."""
+
+    @staticmethod
+    def index(x):
+        return x
+
+    @staticmethod
+    def shr(x, bits: int):
+        return x >> np.uint64(bits)
+
+    @staticmethod
+    def below(x, bound: int):
+        """Unsigned x < bound, bound < 2^64."""
+        return x < np.uint64(bound)
+
+    @staticmethod
+    def total(x) -> int:
+        """The sum modulo 2^64, as numpy's u64 sum wraps."""
+        return int(x.sum())
+
+
+class _TensorU64:
+    """The same on int64 tensors holding u64 bit patterns: an unsigned
+    compare and a logical shift (gl.ult, gl.shr), and a sum taken over the
+    32-bit halves (no int64 overflow), wrapped modulo 2^64 as numpy's."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def index(self, x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
+
+    @staticmethod
+    def shr(x, bits: int):
+        return gl.shr(x, bits)
+
+    @staticmethod
+    def below(x, bound: int):
+        return gl.ult(x, bound - (1 << 64) if bound >> 63 else bound)
+
+    @staticmethod
+    def total(x) -> int:
+        return (int((x & gl.M32).sum()) + (int(gl.shr(x, 32).sum()) << 32)) & _M64
+
 
 def witness_violations(circuit, W) -> dict:
-    """Violation counts per class for a witness matrix W [wires, n, B] u64:
-    {"canonicity": k, "range_<bits>": k, "lookup_limb_<bits>": k}, zero
-    everywhere for an honest witness.  A value over its bound weighs in with
-    its bits above the bound (v >> bits), as in the reference, so one wildly
-    corrupt value can count for more than one."""
-    W = np.asarray(W)
-    out = {"canonicity": int((W >= np.uint64(gl.P)).sum())}
+    """Violation counts per class for a witness matrix W [wires, n, B] of u64
+    values (a numpy array, or an int64 tensor of their bit patterns on any
+    device): {"canonicity": k, "range_<bits>": k, "lookup_limb_<bits>": k},
+    zero everywhere for an honest witness.  A value over its bound weighs in
+    with its bits above the bound (v >> bits), summed modulo 2^64, as in the
+    reference, so one wildly corrupt value can count for more than one.  The
+    counts are Python ints, equal for both forms of the same witness."""
+    if isinstance(W, torch.Tensor):
+        if W.dtype != torch.int64:
+            raise ValueError(f"witness_violations: needs an int64 tensor, got {W.dtype}")
+        u = _TensorU64(W.device)
+    else:
+        W, u = np.asarray(W, np.uint64), _NumpyU64
+    out = {"canonicity": int((~u.below(W, gl.P)).sum())}
     for gi, gate in enumerate(circuit.gates):
         if not isinstance(gate, RangeLookupGate):
             continue
-        rows = circuit.gate_rows[gi]
+        rows = u.index(circuit.gate_rows[gi])
         lb = gate.limb_bits
         # declared bound on each pooled value (the value wires are cols 0..V-1)
         vals = W[:gate.num_vals][:, rows, :]
         key = f"range_{gate.bits}"
-        out[key] = out.get(key, 0) + int((vals >> np.uint64(gate.bits)).sum())
+        out[key] = (out.get(key, 0) + u.total(u.shr(vals, gate.bits))) & _M64
         # derived limbs must sit inside the (scaled) lookup table range
-        limb_cols = np.array([gate.wire_limb(v, j) for v in range(gate.num_vals)
-                              for j in range(gate.num_limbs)])
-        lbad = int((W[limb_cols][:, rows, :] >> np.uint64(lb)).sum())
+        limb_cols = u.index([gate.wire_limb(v, j) for v in range(gate.num_vals)
+                             for j in range(gate.num_limbs)])
+        lbad = u.total(u.shr(W[limb_cols][:, rows, :], lb))
         if gate.scale > 1:
-            top_cols = np.array([gate.wire_limb(v, gate.num_limbs - 1)
-                                 for v in range(gate.num_vals)])
+            top_cols = u.index([gate.wire_limb(v, gate.num_limbs - 1)
+                                for v in range(gate.num_vals)])
             tops = W[top_cols][:, rows, :]
             # scale-check only tops that pass the plain limb bound: a wildly
             # corrupt top could wrap tops * scale in u64 and be missed here
-            # (the plain check above has already counted it)
-            in_range = tops < np.uint64(1 << lb)
-            scaled_bad = (tops * np.uint64(gate.scale) >> np.uint64(lb)) != 0
-            lbad += int((in_range & scaled_bad).sum())
+            # (the plain check above has already counted it); the product of
+            # an in-range top is small, so it is taken of those alone
+            in_range = u.below(tops, 1 << lb)
+            scaled = (tops * in_range) * gate.scale
+            lbad += int((in_range & (u.shr(scaled, lb) != 0)).sum())
         lkey = f"lookup_limb_{gate.bits}"
-        out[lkey] = out.get(lkey, 0) + lbad
+        out[lkey] = (out.get(lkey, 0) + lbad) & _M64
     return out
 
 

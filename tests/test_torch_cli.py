@@ -8,9 +8,7 @@ import json
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu import api as ref_api
 from plonky2_ecdsa_tpu.__main__ import main as ref_main
-from plonky2_ecdsa_tpu.curve import native as ref_cn
 from plonky2_ecdsa_tpu_torch import api
 from plonky2_ecdsa_tpu_torch.__main__ import _load_statements, main
 from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_demo_witness
@@ -42,11 +40,13 @@ def test_sign_writes_the_references_statements(curve, tmp_path):
 
 
 def test_gates_p256_prints_the_references_circuit(capsys):
+    """--config standard is standard_ecc_config for P-256 too (n = 16 384), as
+    the reference's command line has it: the two print the same."""
     main(["gates", "--curve", "p256", "--device", "cpu"])
     got = json.loads(capsys.readouterr().out)
-    ref_sys = ref_api.EcdsaProverSystem(ref_cn.P256)
-    assert got == {"curve": "p256", "config": "standard", "rows": ref_sys.num_rows,
-                   "n": 8192, "gate_rows": ref_sys.gate_counts()}
+    ref_main(["gates", "--curve", "p256"])
+    want = json.loads(capsys.readouterr().out)
+    assert got == want and got["config"] == "standard" and got["n"] == 16384
 
 
 @pytest.mark.parametrize("argv", [

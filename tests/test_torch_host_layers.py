@@ -270,8 +270,9 @@ def test_api_helpers_equal_reference(secp):
     assert sys_.num_rows == ref_sys.num_rows
     stmts = api.random_statements(cn.SECP256K1, 2, seed=9)
     assert sys_.check(stmts)
-    assert not sys_.check([stmts[0], api.EcdsaStatement(msg=stmts[1].msg ^ 1, r=stmts[1].r,
-                                                        s=stmts[1].s, pk=stmts[1].pk)])
+    with pytest.raises(AssertionError):
+        sys_.check([stmts[0], api.EcdsaStatement(msg=stmts[1].msg ^ 1, r=stmts[1].r,
+                                                 s=stmts[1].s, pk=stmts[1].pk)])
 
     class Recorder:
         def prove(self, batch):

@@ -130,3 +130,42 @@ def test_scan_covers_the_recursion_modules():
     names = {os.path.relpath(p, PKG) for p in _sources()}
     for mod in ("recursion", "poseidon_gate", "challenger_circuit", "recursive_verifier"):
         assert os.path.join("circuit", f"{mod}.py") in names, mod
+
+
+_MESH = """
+import inspect, sys
+sys.modules["jax"] = None
+sys.modules["plonky2_ecdsa_tpu"] = None
+from plonky2_ecdsa_tpu_torch.fields import limbs
+from plonky2_ecdsa_tpu_torch.parallel import mesh
+from plonky2_ecdsa_tpu_torch.prover import prover
+from plonky2_ecdsa_tpu_torch.utils import debug
+params = inspect.signature(prover.prove_core).parameters
+assert "stream_commit" not in params and params["shard"].default is None
+try:
+    mesh.prover_mesh(device_type="cpu")
+except RuntimeError as e:
+    assert "process group" in str(e)
+else:
+    raise AssertionError("a mesh without a process group")
+assert not [m for m in sys.modules if m.startswith(("jax.", "plonky2_ecdsa_tpu."))]
+print("mesh modules ok")
+"""
+
+
+def test_mesh_stream_and_tensor_modules_import_with_jax_blocked():
+    """parallel/mesh.py, prove_core's shard (and its one commit path: no
+    stream_commit), the tensor sanitizer and the tensor limbs import where
+    JAX and the reference are blocked; the mesh refuses to run without a
+    process group."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _MESH], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "mesh modules ok" in res.stdout
+
+
+def test_scan_covers_the_mesh_module():
+    names = {os.path.relpath(p, PKG) for p in _sources()}
+    assert os.path.join("parallel", "mesh.py") in names
+    assert os.path.join("parallel", "__init__.py") in names
