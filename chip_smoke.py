@@ -60,7 +60,14 @@ From the repository root, on a machine with one CUDA device:
      reference's frozen demo digest.  Each rank's kernel launches (counts set
      to 0 just before its run) are all above 0.  The kernel phase holds the
      sponge on a strided domain slice, as the col axis hands it, against the
-     plain sponge of the copied slice.
+     plain sponge of the copied slice;
+ 12. the quotient's stacked constraint evaluation, for every gate of the
+     secp256k1 B=32, P-256 B=32 and outer B=8 circuits: Gate.eval_stacked
+     against torch.stack of Gate.eval on one DOMAIN_CHUNK slice of random
+     canonical values of the real shape ([32, 128, 2^14], the outer [8, 136,
+     2^14]), words wrong (0 required); and each circuit's quotient gate
+     section in eager torch ops a domain chunk, counted outside the timed
+     runs.
 Prints the card, the checks and the numbers, then a JSON line of the
 kernels, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the port beside it, it exits nonzero and prints no result.  JAX and
@@ -663,6 +670,54 @@ def main_path(name, dev, card, rows, anchors):
     return system, vals, pis, proof
 
 
+def check_stacked_gates(name, circuit, batch, dev, card):
+    """Every gate's eval_stacked (what the quotient calls) against the stack
+    of its eval list on the card, on one DOMAIN_CHUNK slice of random
+    canonical wires [batch, wires, chunk], constant and PI columns, in the
+    quotient's calling convention; then the circuit's quotient gate section
+    in eager ops a domain chunk, and each gate's stacked and per-constraint
+    ops (counts do not depend on the shape)."""
+    from plonky2_ecdsa_tpu_torch.circuit.algebra import TorchAlgebra
+    from plonky2_ecdsa_tpu_torch.circuit.gates import Gate
+    from plonky2_ecdsa_tpu_torch.profile_stages import quotient_gate_ops
+    from plonky2_ecdsa_tpu_torch.prover import prover
+    from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter
+
+    cfg = circuit.config
+    section = quotient_gate_ops(circuit.gates, cfg.num_constant_cols, cfg.num_challenges, dev)
+    m = prover.DOMAIN_CHUNK
+    rng = np.random.default_rng(SEED)
+    w = random_field(rng, (batch, cfg.num_wires, m), dev)
+    consts = list(random_field(rng, (cfg.num_constant_cols, 1, m), dev).unbind(0))
+    ctx = {"pi_vals": list(random_field(rng, (8, batch, m), dev).unbind(0))}
+    alg = TorchAlgebra((batch, m), dev)
+    ops_stacked = ops_default = 0
+    report = []
+    t0 = time.time()
+    for gate in circuit.gates:
+        if gate.num_constraints == 0:
+            continue
+        warr = w[:, :gate.num_wires].movedim(1, 0)
+        with EagerOpCounter() as stacked:
+            got = gate.eval_stacked(alg, warr, consts, ctx)
+        with EagerOpCounter() as default:
+            want = Gate.eval_stacked(gate, alg, warr, consts, ctx)
+        wrong = int((got != want).sum())
+        assert got.shape == (gate.num_constraints, batch, m) and wrong == 0, \
+            f"{name}: {gate.gate_id()} eval_stacked has {wrong} words wrong"
+        ops_stacked += stacked.count
+        ops_default += default.count
+        report.append(f"{gate.gate_id()} {wrong} ({stacked.count} / {default.count} ops)")
+        del got, want
+    torch.cuda.synchronize()
+    print(f"{name}: eval_stacked against the stacked eval on the card, [{batch}, "
+          f"{cfg.num_wires}, {m}] random canonical wires, words wrong (stacked / per-constraint "
+          f"ops) by gate: {'; '.join(report)}  ({time.time() - t0:.1f} s)")
+    print(f"{name}: the quotient's gate section issues {section} eager torch ops a domain chunk "
+          f"(eval_stacked and the alpha-weighting); the gates' stacked forms {ops_stacked} ops, "
+          f"their per-constraint forms {ops_default}  ({card.line})")
+
+
 def rejection(data, proof) -> str:
     """The VerifyError with which the port's verifier rejects `proof`; an
     accepted proof, or any other exception, ends the run."""
@@ -983,6 +1038,7 @@ def production_recursion(system, dev, card, rows, anchors):
           f"lane 0 True ({exact_s:.1f} s), outer PIs = the {ipis.shape[1]} statement limbs of "
           f"each inner lane; one inner statement limb of lane 0 flipped: witness sanitizer "
           f"{sanitizer}, violated constraints {failures}  ({card.line})")
+    check_stacked_gates("recursion", oc, REC_BATCH, dev, card)
 
 
 def check_aggregation(dev, card):
@@ -1280,6 +1336,7 @@ def main() -> int:
     check_demo(dev, anchors)
     check_demo_recursion(dev, card, anchors)
     system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
+    check_stacked_gates("secp256k1", system.circuit, BATCH, dev, card)
     check_sanitizer_and_limbs(system, vals, pis, dev, card)
     check_mesh(system, vals, pis, proof, dev, card, rows, anchors)
     check_fallback(system, vals, pis, proof, card)
@@ -1287,7 +1344,8 @@ def main() -> int:
     del vals, pis, proof
     production_recursion(system, dev, card, rows, anchors)
     del system
-    main_path("p256", dev, card, rows, anchors)
+    check_stacked_gates("p256", main_path("p256", dev, card, rows, anchors)[0].circuit, BATCH,
+                        dev, card)
     check_wide_config(dev, card)
     check_aggregation(dev, card)
     assert sys.modules["jax"] is None and sys.modules["plonky2_ecdsa_tpu"] is None

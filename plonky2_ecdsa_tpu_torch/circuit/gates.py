@@ -1,8 +1,7 @@
 """Gate inventory: constraint systems of the circuit IR.
 
-Counterpart of ``plonky2_ecdsa_tpu.circuit.gates`` (the stacked evaluators
-are not carried: the prover evaluates ``Gate.eval`` with a tensor algebra;
-PoseidonGate lives in ``circuit.poseidon_gate``).
+Counterpart of ``plonky2_ecdsa_tpu.circuit.gates`` (PoseidonGate lives in
+``circuit.poseidon_gate``).
 
 Design stance (SURVEY.md §7): wide fused gates instead of the reference's
 per-UX-op rows, so each nonnative operation costs 1 row plus shared
@@ -20,17 +19,106 @@ range-check rows.  Key parity points with the reference:
     (plonky2_ux range_check_ux_circuit equivalent; SURVEY.md §2.10).
   * Selectors are boolean per-gate-instance fixed polynomials.
 
-Every gate's `eval` is written once against an algebra adapter and runs
-vectorized over the LDE coset (prover) or at zeta in GF(p^2) (verifier) —
-the reference's eval_unfiltered / eval_unfiltered_circuit duality.
+Every gate's `eval` is written once against an algebra adapter and runs at
+zeta in GF(p^2) (verifier), over host arrays (witness check) or in-circuit
+(recursion) — the reference's eval_unfiltered / eval_unfiltered_circuit
+duality.  The prover's quotient calls `eval_stacked` instead: the same
+constraints, in the same order, over a chunk of the LDE coset as one int64
+tensor with a leading constraint axis (identical values, far fewer eager
+torch ops than one tensor per constraint).  The gates the prover meets most
+override it; the rest stack their `eval` list.
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..fields import goldilocks as gl
 from .foreign import BITS, ForeignField
 
 CARRY_OFFSET = 1 << 33  # CheckSum carry offset (mul_nonnative.rs:373,414)
 CARRY_BITS = 34         # external carry range (0, 2^34) (nonnative.rs:453)
+
+
+# ---------------------------------------------------------------------------
+# Helpers of the stacked evaluators (`eval_stacked`).  The gates' wires come
+# in contiguous blocks, so reshapes of `warr` (views) take the place of the
+# reference's index arrays.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _const_col(values: tuple, tail: int, device) -> torch.Tensor:
+    """Field constants as [len(values), 1 x tail] on `device`, made once: an
+    upload per domain chunk would make the host wait for the card."""
+    return gl.from_ints(values, device).reshape((len(values),) + (1,) * tail)
+
+
+def _flatten_blocks(parts):
+    """Blocks [ops, k_i, *S] joined along axis 1 and flattened op-major to
+    the constraint axis [ops * sum k_i, *S]."""
+    block = torch.cat(parts, 1)
+    return block.reshape((-1,) + block.shape[2:])
+
+
+def _bool_cons(x):
+    """x (x - 1): zero iff x is 0 or 1."""
+    return gl.mul(x, gl.sub(x, 1))
+
+
+def _tri_cons(x):
+    """x (x - 1) (x - 2): zero iff x is 0, 1 or 2."""
+    return gl.mul(_bool_cons(x), gl.sub(x, 2))
+
+
+def _carry_chain_tail(cur, dim: int):
+    """(prev, cur) for a chain where limb i carries into limb i + 1, along
+    `dim` (>= 0): prev = [0, c_0 .. c_{k-1}], cur = [c_0 .. c_{k-1}, 0]."""
+    after = (0, 0) * (cur.ndim - 1 - dim)
+    return F.pad(cur, after + (1, 0)), F.pad(cur, after + (0, 1))
+
+
+def _nnaddsub_eval_stacked_op(gate, warr, is_sub: bool):
+    """NonNativeAdd/SubGate: every op window at once -> [ops * (2N), *S],
+    per op the N limb constraints, ovf boolean, the N - 1 carries in {0,1,2}."""
+    N = gate.N
+    x = warr.reshape((gate.num_ops, gate.OP_WIDTH) + warr.shape[1:])
+    a, b, s = x[:, :N], x[:, N:2 * N], x[:, 2 * N:3 * N]
+    ovf, c = x[:, 3 * N:3 * N + 1], x[:, 3 * N + 1:]
+    ovm = gl.mul(ovf, _const_col(tuple(gate.ff.limbs29), warr.ndim - 1, warr.device))
+    if is_sub:
+        acc = gl.sub(gl.add(gl.sub(a, b), ovm), s)
+    else:
+        acc = gl.sub(gl.sub(gl.add(a, b), s), ovm)
+    prev, cur = _carry_chain_tail(gl.sub(c, 1), 1)         # carries in {-1, 0, 1}
+    acc = gl.sub(gl.add(acc, prev), gl.mul(cur, 1 << BITS))
+    return _flatten_blocks([acc, _bool_cons(ovf), _tri_cons(c)])
+
+
+def _bigcmp_eval_stacked_op(gate, warr):
+    """BigCmpGate: every op window at once -> [ops * (2N + 1), *S], per op
+    the N borrow-chain limbs, the N borrows boolean, le + brw_{N-1} = 1."""
+    N = gate.N
+    x = warr.reshape((gate.num_ops, gate.OP_WIDTH) + warr.shape[1:])
+    a, b, le = x[:, :N], x[:, N:2 * N], x[:, 2 * N:2 * N + 1]
+    d, brw = x[:, 2 * N + 1:3 * N + 1], x[:, 3 * N + 1:]
+    prev = _carry_chain_tail(brw[:, :N - 1], 1)[0]
+    acc = gl.sub(gl.sub(gl.sub(b, a), prev), d)
+    acc = gl.add(acc, gl.mul(brw, 1 << BITS))
+    fin = gl.sub(gl.add(le, brw[:, N - 1:]), 1)
+    return _flatten_blocks([acc, _bool_cons(brw), fin])
+
+
+def _randacc_interp_stacked(items, bits, nb: int, dim: int):
+    """Iterated interpolation over the item axis `dim`: pairs (2i, 2i + 1)
+    joined by bit j at step j, for j < nb; bits' axis `dim` holds the bits.
+    items [..., 2^nb, *S] -> [..., *S]."""
+    for j in range(nb):
+        ev, od = items.unflatten(dim, (-1, 2)).unbind(dim + 1)
+        items = gl.add(ev, gl.mul(bits.narrow(dim, j, 1), gl.sub(od, ev)))
+    return items.squeeze(dim)
 
 
 class Gate:
@@ -58,6 +146,19 @@ class Gate:
     def eval(self, alg, wires, consts, ctx):
         """Return list of constraint values (algebra elements)."""
         raise NotImplementedError
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        """The constraints over a slice of the LDE coset as ONE int64 tensor
+        [num_constraints, *alg.shape], in exactly `eval`'s order.
+
+        `alg` is a TorchAlgebra, `warr` this gate's wires [num_wires,
+        *alg.shape] (a view of the wires LDE), `consts` the constant columns
+        and `ctx["pi_vals"]` the PI columns, each of alg.shape's rank and
+        broadcastable to it (the quotient's constants are [1, m]).  This
+        default stacks `eval`'s list; subclasses that the prover meets often
+        compute the same values as a few ops on stacked tensors."""
+        cons = self.eval(alg, warr.unbind(0), consts, ctx)
+        return torch.stack([v.expand(alg.shape) for v in cons])
 
     def eval_circuit(self, builder, wires, consts, ctx=None):
         """Evaluate this gate's constraints in-circuit over ExtTarget wires.
@@ -114,6 +215,9 @@ class ConstantGate(Gate):
     def eval(self, alg, wires, consts, ctx):
         return [alg.sub(wires[i], consts[i]) for i in range(self.num_consts)]
 
+    def eval_stacked(self, alg, warr, consts, ctx):
+        return gl.sub(warr, torch.stack(consts[:self.num_consts]))
+
 
 class PublicInputGate(Gate):
     """K routed wires constrained to equal the public-input polynomials
@@ -140,6 +244,9 @@ class PublicInputGate(Gate):
     def eval(self, alg, wires, consts, ctx):
         pis = ctx["pi_vals"]  # num_cols algebra elements (PI_j at the point(s))
         return [alg.sub(wires[i], pis[i]) for i in range(self.num_cols)]
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        return gl.sub(warr, torch.stack(ctx["pi_vals"][:self.num_cols]))
 
 
 class ArithmeticGate(Gate):
@@ -180,6 +287,11 @@ class ArithmeticGate(Gate):
             t = alg.add(t, alg.mul(c1, wires[ad]))
             out.append(alg.sub(t, wires[o]))
         return out
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        m1, m2, ad, o = warr.reshape((self.num_ops, self.WIRES_PER_OP) + warr.shape[1:]).unbind(1)
+        t = gl.add(gl.mul(consts[0], gl.mul(m1, m2)), gl.mul(consts[1], ad))
+        return gl.sub(t, o)
 
 
 class BaseSum2Gate(Gate):
@@ -226,6 +338,13 @@ class BaseSum2Gate(Gate):
                 b = wires[self.wire_bit(op, j)]
                 out.append(alg.mul(b, alg.add_const(b, -1)))
         return out
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        x = warr.reshape((self.num_ops, 1 + self.bits) + warr.shape[1:])
+        vals, bits = x[:, 0], x[:, 1:]
+        w2 = _const_col(tuple(1 << j for j in range(self.bits)), warr.ndim - 1, warr.device)
+        recc = gl.sub(gl.sum_mod(gl.mul(bits, w2), 1), vals)
+        return _flatten_blocks([recc[:, None], _bool_cons(bits)])
 
 
 class RangeCheckGate(Gate):
@@ -278,6 +397,17 @@ class RangeCheckGate(Gate):
                     c = alg.mul(c, alg.add_const(l, -3))
                 out.append(c)
         return out
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        V, nl = self.num_vals, self.num_limbs
+        limbs = warr[V:].reshape((V, nl) + warr.shape[1:])
+        w4 = _const_col(tuple(1 << (2 * j) for j in range(nl)), warr.ndim - 1, warr.device)
+        recc = gl.sub(gl.sum_mod(gl.mul(limbs, w4), 1), warr[:V])
+        c2 = _bool_cons(limbs)
+        c4 = gl.mul(gl.mul(c2, gl.sub(limbs, 2)), gl.sub(limbs, 3))
+        if self.top_base == 2:           # the top limb is one bit
+            c4 = torch.cat([c4[:, :nl - 1], c2[:, nl - 1:]], 1)
+        return _flatten_blocks([recc[:, None], c4])
 
 
 class RangeLookupGate(Gate):
@@ -441,6 +571,21 @@ class MulNonNativeGate(Gate):
                 out.append(acc)
         return out
 
+    def eval_stacked(self, alg, warr, consts, ctx):
+        N = self.N
+        x, y, r = warr[:N], warr[N:2 * N], warr[2 * N:3 * N]
+        q, b = warr[3 * N:4 * N], warr[4 * N:]
+        m = _const_col(tuple(self.ff.limbs29), warr.ndim, warr.device)
+        D = gl.sub(gl.mul(m, q[None]), gl.mul(x[:, None], y[None]))   # [j, k] = m_j q_k - x_j y_k
+        # conv_i = sum_{j+k=i} D[j, k]: rows of D padded to 2N and read back
+        # as rows of 2N - 1 put D[j, k] at column j + k of row j
+        S = D.shape[2:]
+        rows = F.pad(D, (0, 0) * len(S) + (0, N)).reshape((2 * N * N,) + S)
+        conv = gl.sum_mod(rows[:N * (2 * N - 1)].reshape((N, 2 * N - 1) + S), 0)
+        prev, cur = _carry_chain_tail(gl.sub(b, CARRY_OFFSET), 0)
+        acc = gl.add(gl.add(conv, F.pad(r, (0, 0) * len(S) + (0, N - 1))), prev)
+        return gl.sub(acc, gl.mul(cur, 1 << BITS))
+
 
 class NonNativeAddGate(Gate):
     """num_ops independent ops: a + b = s + ovf*m limbwise with in-gate
@@ -521,6 +666,9 @@ class NonNativeAddGate(Gate):
                 out.append(alg.mul(t, alg.add_const(c, -2)))  # c' in {0,1,2}
         return out
 
+    def eval_stacked(self, alg, warr, consts, ctx):
+        return _nnaddsub_eval_stacked_op(self, warr, is_sub=False)
+
 
 class NonNativeSubGate(Gate):
     """num_ops independent ops: d = a - b + ovf*m limbwise (reference
@@ -592,6 +740,9 @@ class NonNativeSubGate(Gate):
                 out.append(alg.mul(t, alg.add_const(c, -2)))
         return out
 
+    def eval_stacked(self, alg, warr, consts, ctx):
+        return _nnaddsub_eval_stacked_op(self, warr, is_sub=True)
+
 
 class NonNativeAddManyGate(Gate):
     """Sum of K 9-limb values = s + ovf*m; carries offset by 2^33 and
@@ -651,6 +802,16 @@ class NonNativeAddManyGate(Gate):
                 prev = cur
             out.append(acc)
         return out
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        N, k = self.N, self.k
+        S = warr.shape[1:]
+        asum = gl.sum_mod(warr[:k * N].reshape((k, N) + S), 0)
+        s, ovf, c = warr[k * N:(k + 1) * N], warr[(k + 1) * N], warr[(k + 1) * N + 1:]
+        ovm = gl.mul(ovf, _const_col(tuple(self.ff.limbs29), warr.ndim - 1, warr.device))
+        prev, cur = _carry_chain_tail(gl.sub(c, CARRY_OFFSET), 0)
+        acc = gl.add(gl.sub(gl.sub(asum, s), ovm), prev)
+        return gl.sub(acc, gl.mul(cur, 1 << BITS))
 
 
 class BigCmpGate(Gate):
@@ -718,6 +879,9 @@ class BigCmpGate(Gate):
                                        wires[self.wire_brw(N - 1, op)]),
                                alg.one()))
         return out
+
+    def eval_stacked(self, alg, warr, consts, ctx):
+        return _bigcmp_eval_stacked_op(self, warr)
 
 
 class RandomAccessGate(Gate):
@@ -805,3 +969,22 @@ class RandomAccessGate(Gate):
             out.append(alg.sub(sel, wires[self.wire_out(c)]))
         return out
 
+    def eval_stacked(self, alg, warr, consts, ctx):
+        nc, nb, R = self.num_copies, self.bits, self._routed_per_copy
+        S = warr.shape[1:]
+        routed = warr[:nc * R].reshape((nc, R) + S)
+        idx, out, items = routed[:, 0], routed[:, 1], routed[:, 2:]
+        bits = warr[nc * R:nc * (R + nb)].reshape((nc, nb) + S)
+        w2 = _const_col(tuple(1 << j for j in range(nb)), warr.ndim - 1, warr.device)
+        parts = [_bool_cons(bits), gl.sub(gl.sum_mod(gl.mul(bits, w2), 1), idx)[:, None]]
+        if self.split:
+            halves = warr[nc * (R + nb):].reshape((nc, 2) + S)       # t0, t1
+            within = _randacc_interp_stacked(items.reshape((nc, 2, -1) + S), bits[:, None],
+                                             nb - 1, 2)
+            t0, t1 = halves.unbind(1)
+            sel = gl.add(t0, gl.mul(bits[:, nb - 1], gl.sub(t1, t0)))
+            parts.append(gl.sub(within, halves))
+        else:
+            sel = _randacc_interp_stacked(items, bits, nb, 1)
+        parts.append(gl.sub(sel, out)[:, None])
+        return _flatten_blocks(parts)

@@ -118,6 +118,33 @@ def recursive_setup(timings: dict):
     return odata, vals, oc.public_input_values()
 
 
+def quotient_gate_ops(gates, num_consts: int, challenges: int, device="cpu") -> int:
+    """Eager torch ops that the quotient's gate section
+    (``prover._add_gate_constraints``) issues for one domain chunk of a
+    circuit with these gates, counted on random inputs [B=2, 8 points]: the
+    count does not depend on the chunk's shape.  A first, uncounted pass
+    makes the gates' cached constants."""
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
+    from plonky2_ecdsa_tpu_torch.prover import prover
+    from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter
+
+    rng = np.random.default_rng(0)
+
+    def field(*shape):
+        return gl.from_u64(rng.integers(0, gl.P, shape, dtype=np.uint64), device)
+
+    B, m = 2, 8
+    w = field(B, max(g.num_wires for g in gates), m)
+    fixed = field(num_consts + len(gates), m)
+    pic = field(B, max(getattr(g, "num_cols", 1) for g in gates), m)
+    apows = [field(B, max(g.num_constraints for g in gates)) for _ in range(challenges)]
+    comb = [field(B, m) for _ in range(challenges)]
+    prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+    with EagerOpCounter() as counter:
+        prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+    return counter.count
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("curve", nargs="?", default="secp256k1",

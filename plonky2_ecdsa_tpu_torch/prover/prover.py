@@ -288,6 +288,28 @@ def _over_domain(eval_chunk, N: int, shard):
     return joined
 
 
+def _add_gate_constraints(comb, gates, w, fixed, pic, apows, perm_slots: int, num_consts: int):
+    """comb[c] += sum over gates g of sel_g * sum_s alpha_c^(perm_slots + s)
+    cons_{g,s} over a domain slice: w [B, wires, m], fixed [cols, m] (the
+    constant columns, then one selector a gate), pic [B, PI cols, m], apows
+    [B, slots] a challenge.  Each gate's constraints come from
+    Gate.eval_stacked as one [k, B, m] tensor."""
+    alg = TorchAlgebra((w.shape[0], w.shape[-1]), w.device)
+    consts = list(fixed[:num_consts, None].unbind(0))          # [1, m] each
+    for gi, gate in enumerate(gates):
+        if gate.num_constraints == 0:
+            continue
+        ctx = {}
+        if isinstance(gate, PublicInputGate):
+            ctx["pi_vals"] = list(pic[:, :gate.num_cols].unbind(1))
+        cons = gate.eval_stacked(alg, w[:, :gate.num_wires].movedim(1, 0), consts, ctx)
+        k = cons.shape[0]
+        for c in range(len(comb)):
+            av = apows[c][:, perm_slots:perm_slots + k].t()[..., None]
+            term = gl.sum_mod(gl.mul(cons, av), 0)
+            comb[c] = gl.add(comb[c], gl.mul(fixed[num_consts + gi], term))
+
+
 def _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas, gammas,
                       alphas, lk_alphas, shard=None):
     """Combined constraints / Z_H over the LDE coset -> [B, C, N]; with a
@@ -334,21 +356,8 @@ def _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas, gammas,
             l0z = gl.mul(l0, gl.sub(z, 1))
             comb[c] = gl.add(comb[c], gl.mul(l0z, apows[c][:, 0:1]))
 
-        alg = TorchAlgebra(shape, w.device)
-        consts = [fixed[j] for j in range(cfg.num_constant_cols)]
-        for gi, gate in enumerate(circuit.gates):
-            if gate.num_constraints == 0:
-                continue
-            ctx = {}
-            if isinstance(gate, PublicInputGate):
-                ctx["pi_vals"] = [pic[:, j] for j in range(gate.num_cols)]
-            wires = [w[:, i] for i in range(gate.num_wires)]
-            cons = torch.stack([v.expand(shape) for v in gate.eval(alg, wires, consts, ctx)])
-            k = cons.shape[0]
-            for c in range(C):
-                av = apows[c][:, data.perm_slots:data.perm_slots + k].t()[..., None]
-                term = gl.sum_mod(gl.mul(cons, av), 0)
-                comb[c] = gl.add(comb[c], gl.mul(fixed[sel_off + gi], term))
+        _add_gate_constraints(comb, circuit.gates, w, fixed, pic, apows, data.perm_slots,
+                              cfg.num_constant_cols)
 
         if lk is not None:
             nb = lk.num_batches

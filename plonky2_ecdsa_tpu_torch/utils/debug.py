@@ -22,6 +22,7 @@ circuit) passes here and fails ``circuit.witness.check_constraints``.
 two builds (two packages, two machines) can be compared by one value;
 ``value_table_digest`` does the same for a witness tape's value table, and
 ``gate_histogram`` / ``gate_rows_used`` count a circuit's rows by gate.
+``EagerOpCounter`` counts the torch ops a stretch of code dispatches.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import hashlib
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..circuit.gates import RangeLookupGate
 from ..fields import goldilocks as gl
@@ -159,3 +161,17 @@ def gate_histogram(circuit) -> dict:
 def gate_rows_used(circuit) -> int:
     """Rows that hold a gate other than Noop (padding)."""
     return sum(k for gid, k in gate_histogram(circuit).items() if gid != "Noop")
+
+
+class EagerOpCounter(TorchDispatchMode):
+    """Counts the aten ops dispatched inside its `with` block, views
+    included: what eager code issues one op at a time from the host, on any
+    device (``with EagerOpCounter() as c: ...; c.count``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.count += 1
+        return func(*args, **(kwargs or {}))
