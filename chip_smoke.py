@@ -29,7 +29,11 @@ From the repository root, on a machine with one CUDA device:
      requires a VerifyError for a tampered proof, checks the fixed cap, lane
      0's wires cap and lane 0's whole proof against the values frozen from the
      reference, checks that every kernel was launched by that path (counts set
-     to 0 just before it, read just after), and times steady-state batches;
+     to 0 just before it, read just after: the Prover captures its device side
+     as CUDA graphs at the first batch and every batch replays them, so the
+     launches a batch are the replays' launches, each graph's launches counted
+     at its capture), and times steady-state batches (replays, none of which
+     launches a kernel eagerly);
   5. the wide-witness fallback on the card: a forged value table (a value of
      41 bits under a narrow-classified slot) and a misclassified role (honest
      table) both warn on stderr and are proved through the full-witness path;
@@ -41,8 +45,9 @@ From the repository root, on a machine with one CUDA device:
      system: B=8 inner proofs (seed 11) -> the verifier circuit under
      recursion_ecc_config (outer n = 2^14, N = 2^17, 28 queries, 16 PoW
      bits; structure and fixed cap against the reference's frozen values)
-     -> witness through the native tape -> the outer proof (kernel counts
-     set to 0 just before the first, read just after), steady state through
+     -> witness through the native tape (lane 0 against the reference's
+     frozen B=1 value table) -> the outer proof (kernel counts set to 0 just
+     before the first, read just after), steady state through
      dispatch_vals/collect -> verify_strict and verify_one_exact; the outer
      PIs are the inner statements' limbs, no fallback is taken, and a flipped
      inner statement limb breaks the outer witness;
@@ -67,7 +72,16 @@ From the repository root, on a machine with one CUDA device:
      canonical values of the real shape ([32, 128, 2^14], the outer [8, 136,
      2^14]), words wrong (0 required); and each circuit's quotient gate
      section in eager torch ops a domain chunk, counted outside the timed
-     runs.
+     runs;
+ 13. the compiled prover (the Prover's CUDA graphs), after each main path and
+     in the recursion phase: for secp256k1 B=32 and P-256 B=32 (seeds 3, 4,
+     5) and the outer B=8 (inner seeds 11, 12, 13), eager prove_core + to_host
+     of each witness against three replays with batch k + 1 dispatched before
+     batch k is collected: equal digests, every proof verified (lane 0
+     exactly), the main path's seed against the frozen anchors, launches a
+     replay (counted at capture) equal to the eager launches; the graphs'
+     capture and instantiation seconds, node counts and memory; each
+     Prover's graphs released before the next path.
 Prints the card, the checks and the numbers, then a JSON line of the
 kernels, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the port beside it, it exits nonzero and prints no result.  JAX and
@@ -109,6 +123,10 @@ WIDE_WIRES, WIDE_FIXED_COLS = 234, 225
 REC_BATCH, REC_SEED = 8, 11
 OUTER_WIRES, OUTER_LOG_N, OUTER_LOG_LDE = 136, 14, 17
 AGG_BATCH, AGG_SEED = 4, 99
+# the witnesses of the graph prover's phase, by path: the main paths' seed and
+# the recursion's, and two more each
+GRAPH_SEEDS = {"secp256k1": (SEED, SEED + 1, SEED + 2), "p256": (SEED, SEED + 1, SEED + 2),
+               "recursion": (REC_SEED, REC_SEED + 1, REC_SEED + 2)}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCHED_LANES_PER_CLK_SM = 128   # 4 schedulers x one 32-thread instruction per clock
 
@@ -140,6 +158,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def zero_counts(rows):
+    """Every kernel's counts to 0: its eager launches and its launches by
+    graph replays."""
+    for r in rows:
+        r["fn"].launches = r["fn"].replayed = 0
+
+
+def graph_line(stats) -> str:
+    """The set-up figures of a Prover's graphs (Prover.graph_stats[key])."""
+    return (f"graphs: warm-up {stats['warmup_s']:.2f} s, capture {stats['capture_s']:.2f} s, "
+            f"instantiate {stats['instantiate_s']:.2f} s, nodes {stats['nodes']} "
+            f"({stats['nodes_per_batch']} run a batch over {stats['domain_chunks']} domain "
+            f"chunks), device memory reserved {stats['device_bytes'] / 2**30:.1f} GiB, host "
+            f"memory grown {stats['host_bytes'] / 2**30:.2f} GiB")
 
 
 def lde_work(polys: int, n: int, N: int, per_butterfly: int, per_mul: int):
@@ -619,17 +653,20 @@ def main_path(name, dev, card, rows, anchors):
           f"equals the reference's), prover set-up {setup_s:.2f} s, witness B={BATCH} through "
           f"the native tape {witness_s:.1f} s  ({card.line})")
 
-    for r in rows:
-        r["fn"].launches = 0
+    zero_counts(rows)
     t0 = time.time()
     proof = run.run_vals(vals, pis)
     first_s = time.time() - t0
     key = "launches" if name == "secp256k1" else f"launches_{name}"
     for r in rows:
-        r[key] = r["fn"].launches
-    print(f"{name} main path kernel launches a batch: "
-          + ", ".join(f"{r['name']}={r[key]}" for r in rows))
+        r[key] = r["fn"].replayed
+    graphs = run.graph_stats[("vals", BATCH)]
+    print(f"{name} main path kernel launches a batch (the first batch's graph replays): "
+          + ", ".join(f"{r['name']}={r[key]}" for r in rows)
+          + "; the warm-up before the capture launched "
+          + ", ".join(f"{r['name']}={r['fn'].launches}" for r in rows) + "; " + graph_line(graphs))
     assert all(r[key] > 0 for r in rows), f"a kernel of the {name} path was not launched"
+    assert all(r[key] == graphs["launches"][r["fn"].__name__] for r in rows)
 
     t0 = time.time()
     verifier.verify_strict(data, proof)     # raises where a check fails
@@ -659,15 +696,95 @@ def main_path(name, dev, card, rows, anchors):
     print(f"{name}: lane 0's wires cap and lane 0 of the whole B={BATCH} proof equal the "
           f"reference's numpy B=1 commitment and proof (frozen)")
 
+    zero_counts(rows)
     t0 = time.time()
     again = [run.run_vals(vals, pis) for _ in range(STEADY_BATCHES)]
     steady_s = (time.time() - t0) / STEADY_BATCHES
     assert all(prover.first_difference(proof, p) is None for p in again), \
         "proving is not deterministic"
-    print(f"{name}: first prove {first_s:.2f} s; steady state {steady_s:.2f} s/batch = "
-          f"{BATCH / steady_s:.2f} proofs/s at B={BATCH} over {STEADY_BATCHES} batches; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card.line})")
+    assert all(r["fn"].launches == 0 and r["fn"].replayed == STEADY_BATCHES * r[key]
+               for r in rows), "a steady-state batch launched a kernel outside its graphs"
+    print(f"{name}: first prove (warm-up, capture, instantiate, replay) {first_s:.2f} s; steady "
+          f"state (graph replays) {steady_s:.2f} s/batch = {BATCH / steady_s:.2f} proofs/s at "
+          f"B={BATCH} over {STEADY_BATCHES} batches; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card.line})")
     return system, vals, pis, proof
+
+
+def graph_tables(system, vals, pis, name):
+    """The main path's value table and PIs, then those of the further seeds
+    of GRAPH_SEEDS[name]."""
+    from plonky2_ecdsa_tpu_torch import api
+
+    return [(vals, pis)] + [system.witness_vals(api.random_statements(system.curve, BATCH,
+                                                                      seed=seed))
+                            for seed in GRAPH_SEEDS[name][1:]]
+
+
+def check_graph_prover(name, run, tables, rows, card, anchor=None):
+    """The compiled prover against eager prove_core on three witnesses of
+    one batch size (GRAPH_SEEDS): each one's eager prove_core + to_host,
+    with its kernel launches; then the three through the Prover's graphs
+    (captured already), batch k + 1 dispatched before batch k is collected.
+    Each proof's digest equals the eager one, verify_strict accepts it and
+    verify_one_exact lane 0; the first (the main path's seed) meets the
+    reference's frozen lane 0 where `anchor` is given; the launches a replay
+    (counted at capture) equal the eager launches, and the replays launch
+    nothing eagerly.  Prints the graphs' set-up figures, with the device
+    memory their captures reserved, then releases the graphs."""
+    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+
+    data, batch = run.data, tables[0][0].shape[1]
+    kernels = list({r["fn"].__name__: r["fn"] for r in rows}.values())
+    assert ("vals", batch) in run.graph_stats, "the graph phase replays a captured path"
+    eager, eager_s, eager_launches = [], [], None
+    for vals, pis in tables:
+        zero_counts(rows)
+        t0 = time.time()
+        vn, vw = run._vals_split(vals)
+        inputs = run._expand(torch.from_numpy(vn.view(np.int32)).to(data.device),
+                             torch.from_numpy(vw.view(np.int64)).to(data.device))
+        eager.append(prover.to_host(prover.prove_core(data, run.backend, *inputs), pis))
+        eager_s.append(time.time() - t0)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        assert eager_launches in (None, launches), "eager launches differ between witnesses"
+        eager_launches = launches
+        del inputs
+    zero_counts(rows)
+    t0 = time.time()
+    pending, proofs = None, []
+    for vals, pis in tables:
+        handle = run.dispatch_vals(vals, pis)
+        if pending is not None:
+            proofs.append(run.collect(pending))
+        pending = handle
+    proofs.append(run.collect(pending))
+    replay_s = (time.time() - t0) / len(tables)
+    stats = run.graph_stats[("vals", batch)]
+    assert stats["launches"] == eager_launches, (stats["launches"], eager_launches)
+    assert all(fn.launches == 0 and fn.replayed == len(tables) * stats["launches"][fn.__name__]
+               for fn in kernels), "a replayed batch launched a kernel outside its graphs"
+    digests = [prover.proof_digest(p) for p in proofs]
+    assert digests == [prover.proof_digest(e) for e in eager], \
+        "a replayed proof differs from the eager proof of the same witness"
+    assert len(set(digests)) == len(tables), "two witnesses gave one proof"
+    if anchor is not None:
+        assert prover.proof_digest(proofs[0], lane=0) == anchor, \
+            "lane 0 of the replayed proof differs from the reference's"
+    t0 = time.time()
+    for p in proofs:
+        verifier.verify_strict(data, p)
+        assert verifier.verify_one_exact(data, p, 0), "lane 0 fails the exact verifier"
+    verify_s = time.time() - t0
+    frozen = (f"; seed {GRAPH_SEEDS[name][0]} lane 0 equals the reference (frozen)"
+              if anchor is not None else "")
+    print(f"{name} graph prover B={batch}, seeds {GRAPH_SEEDS[name]}: two batches in flight, "
+          f"every proof's digest equals eager prove_core + to_host of its witness{frozen}; "
+          f"verify_strict and verify_one_exact lane 0 accept all three ({verify_s:.1f} s); "
+          f"launches a replay (counted at capture) {stats['launches']} = eager; eager "
+          f"{[round(t, 2) for t in eager_s]} s, replays {replay_s:.2f} s/batch; "
+          f"{graph_line(stats)}  ({card.line})")
+    run.release()
 
 
 def check_stacked_gates(name, circuit, batch, dev, card):
@@ -753,11 +870,12 @@ def check_fallback(system, vals, pis, proof, card):
 
     def warned(fn):
         err = io.StringIO()
-        launches = poseidon_cuda.sponge.launches
+        runs = poseidon_cuda.sponge.launches + poseidon_cuda.sponge.replayed
         with contextlib.redirect_stderr(err):
             out = fn()
         assert "falling back to the wide witness path" in err.getvalue(), err.getvalue()
-        assert poseidon_cuda.sponge.launches > launches, "the fallback left the kernels"
+        assert poseidon_cuda.sponge.launches + poseidon_cuda.sponge.replayed > runs, \
+            "the fallback left the kernels"
         return out, err.getvalue().strip()
 
     got, line = warned(lambda: run.run_vals(forged, pis))
@@ -779,9 +897,12 @@ def check_fallback(system, vals, pis, proof, card):
     got, line = warned(lambda: misclassified.run_vals(vals, pis))
     verifier.verify_strict(data, got)
     assert prover.first_difference(honest, got) is None
+    assert ("wide", lanes) in misclassified.graph_stats and ("wide", lanes) in run.graph_stats
     print(f"fallback (b), mul_nn's carries classified narrow, honest table B={lanes}: stderr "
           f"'{line[:100]}...'; verify_strict accepts the proof, which equals the narrow path's "
-          f"leaf for leaf  ({card.line})")
+          f"leaf for leaf; the full-witness path ran as its own graphs ("
+          f"{graph_line(misclassified.graph_stats[('wide', lanes)])})  ({card.line})")
+    misclassified.release()
 
 
 def exit_code(argv) -> int:
@@ -937,15 +1058,19 @@ def production_recursion(system, dev, card, rows, anchors):
     from plonky2_ecdsa_tpu_torch.prover import prover, verifier
     from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
     from plonky2_ecdsa_tpu_torch.utils.debug import (gate_histogram, gate_rows_used,
-                                                     structure_digest, witness_violations)
+                                                     structure_digest, value_table_digest,
+                                                     witness_violations)
 
     idata = system.data
-    stmts = api.random_statements(api.SECP256K1, REC_BATCH, seed=REC_SEED)
     t0 = time.time()
-    iproof = system.prover.run_vals(*system.witness_vals(stmts))
+    inner = [system.prover.run_vals(*system.witness_vals(
+        api.random_statements(api.SECP256K1, REC_BATCH, seed=seed)))
+        for seed in GRAPH_SEEDS["recursion"]]
+    iproof = inner[0]
     verifier.verify_strict(idata, iproof)
     inner_s = time.time() - t0
     ipis = iproof.pis
+    system.prover.release()          # the outer proof's memory is measured alone
 
     t0 = time.time()
     config = CircuitConfig.recursion_ecc_config()
@@ -974,28 +1099,36 @@ def production_recursion(system, dev, card, rows, anchors):
     native_ops = oc._native_tape().n_native
     opis = oc.public_input_values()
     assert np.array_equal(opis, ipis), "the outer PIs are not the inner statements' limbs"
+    assert anchors["recursion_ecc_seed"] == REC_SEED
+    assert value_table_digest(vals[:, :1]) == anchors["recursion_ecc_lane0_table_sha256"], \
+        "lane 0 of the outer value table differs from the reference's"
     t0 = time.time()
     run = prover.Prover(odata)
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    print(f"recursion: inner secp256k1 B={REC_BATCH} (seed {REC_SEED}) proved and verified "
-          f"{inner_s:.1f} s; outer circuit n={oc.n} ({nrows} rows: {gate_histogram(oc)}) built "
+    print(f"recursion: inner secp256k1 B={REC_BATCH} (seeds {GRAPH_SEEDS['recursion']}) proved, "
+          f"seed {REC_SEED} verified, {inner_s:.1f} s; outer circuit"
+          f" n={oc.n} ({nrows} rows: {gate_histogram(oc)}) built "
           f"{build_s:.1f} s, structure equals the reference's; N={odata.N}, "
           f"{odata.fixed_values.shape[0]} fixed columns, fixed commit on the card "
           f"{commit_s:.2f} s (cap equals the reference's); witness B={REC_BATCH} through the "
           f"native tape ({native_ops} of {len(oc.tape)} ops native, {vals.shape[0]} targets) "
-          f"{witness_s:.1f} s; prover set-up {setup_s:.2f} s  ({card.line})")
+          f"{witness_s:.1f} s, lane 0 equals the reference's B=1 value table (frozen); prover "
+          f"set-up {setup_s:.2f} s  ({card.line})")
 
-    for r in rows:
-        r["fn"].launches = 0
+    zero_counts(rows)
     t0 = time.time()
     proof = no_fallback(lambda: run.run_vals(vals, opis))
     first_s = time.time() - t0
     for r in rows:
-        r["launches_recursive"] = r["fn"].launches
-    print("recursion: outer proof kernel launches a batch: "
-          + ", ".join(f"{r['name']}={r['launches_recursive']}" for r in rows))
+        r["launches_recursive"] = r["fn"].replayed
+    graphs = run.graph_stats[("vals", REC_BATCH)]
+    print("recursion: outer proof kernel launches a batch (the first batch's graph replays): "
+          + ", ".join(f"{r['name']}={r['launches_recursive']}" for r in rows)
+          + "; the warm-up before the capture launched "
+          + ", ".join(f"{r['name']}={r['fn'].launches}" for r in rows) + "; " + graph_line(graphs))
     assert all(r["launches_recursive"] > 0 for r in rows), "a kernel of the outer path was not launched"
+    assert all(r["launches_recursive"] == graphs["launches"][r["fn"].__name__] for r in rows)
 
     def steady():
         pending, proofs = None, []
@@ -1007,15 +1140,20 @@ def production_recursion(system, dev, card, rows, anchors):
         proofs.append(run.collect(pending))
         return proofs
 
+    zero_counts(rows)
     t0 = time.time()
     again = no_fallback(steady)
     steady_s = (time.time() - t0) / STEADY_BATCHES
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(prover.first_difference(proof, p) is None for p in again), \
         "outer proving is not deterministic"
-    print(f"recursion: first outer prove {first_s:.2f} s; steady state {steady_s:.2f} s/batch = "
-          f"{REC_BATCH / steady_s:.3f} outer proofs/s at B={REC_BATCH} over {STEADY_BATCHES} "
-          f"batches (dispatch_vals/collect); peak device memory {peak:.1f} GiB  ({card.line})")
+    assert all(r["fn"].launches == 0
+               and r["fn"].replayed == STEADY_BATCHES * r["launches_recursive"]
+               for r in rows), "a steady-state outer batch launched a kernel outside its graphs"
+    print(f"recursion: first outer prove (warm-up, capture, instantiate, replay) {first_s:.2f} s; "
+          f"steady state (graph replays) {steady_s:.2f} s/batch = {REC_BATCH / steady_s:.3f} "
+          f"outer proofs/s at B={REC_BATCH} over {STEADY_BATCHES} batches "
+          f"(dispatch_vals/collect); peak device memory {peak:.1f} GiB  ({card.line})")
 
     t0 = time.time()
     verifier.verify_strict(odata, proof)
@@ -1038,6 +1176,13 @@ def production_recursion(system, dev, card, rows, anchors):
           f"lane 0 True ({exact_s:.1f} s), outer PIs = the {ipis.shape[1]} statement limbs of "
           f"each inner lane; one inner statement limb of lane 0 flipped: witness sanitizer "
           f"{sanitizer}, violated constraints {failures}  ({card.line})")
+
+    tables = [(vals, opis)]
+    for other in inner[1:]:
+        tables.append((oc.value_table(rv.recursive_verifier_inputs(idata, other), REC_BATCH),
+                       oc.public_input_values()))
+    check_graph_prover("recursion", run, tables, rows, card)
+    del tables
     check_stacked_gates("recursion", oc, REC_BATCH, dev, card)
 
 
@@ -1336,6 +1481,8 @@ def main() -> int:
     check_demo(dev, anchors)
     check_demo_recursion(dev, card, anchors)
     system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
+    check_graph_prover("secp256k1", system.prover, graph_tables(system, vals, pis, "secp256k1"),
+                       rows, card, anchors["secp256k1_lane0_proof_sha256"])
     check_stacked_gates("secp256k1", system.circuit, BATCH, dev, card)
     check_sanitizer_and_limbs(system, vals, pis, dev, card)
     check_mesh(system, vals, pis, proof, dev, card, rows, anchors)
@@ -1344,8 +1491,11 @@ def main() -> int:
     del vals, pis, proof
     production_recursion(system, dev, card, rows, anchors)
     del system
-    check_stacked_gates("p256", main_path("p256", dev, card, rows, anchors)[0].circuit, BATCH,
-                        dev, card)
+    system, vals, pis, _proof = main_path("p256", dev, card, rows, anchors)
+    check_graph_prover("p256", system.prover, graph_tables(system, vals, pis, "p256"), rows, card,
+                       anchors["p256_lane0_proof_sha256"])
+    check_stacked_gates("p256", system.circuit, BATCH, dev, card)
+    del system, vals, pis, _proof
     check_wide_config(dev, card)
     check_aggregation(dev, card)
     assert sys.modules["jax"] is None and sys.modules["plonky2_ecdsa_tpu"] is None

@@ -9,7 +9,8 @@ Counterpart of ``plonky2_ecdsa_tpu.hash.poseidon_pallas``:
 
 Each wrapper takes the plain torch version for a CPU tensor; for a CUDA
 tensor it launches its kernel or raises.  ``launches`` on each wrapper counts
-its kernel launches.  ``field_check`` launches the CUDA source's test entry
+its kernel launches; ``replayed`` counts the kernel's launches by replays of
+a captured prove (``prover/graph.py`` adds each replay's captured launches).  ``field_check`` launches the CUDA source's test entry
 (the kernels' field primitives on arrays of operands; CUDA tensors only).
 """
 
@@ -61,6 +62,7 @@ def permute(state):
 
 
 permute.launches = 0
+permute.replayed = 0
 
 
 # The sponge's layouts: where the k absorbed words of a leaf lie in the input
@@ -146,6 +148,7 @@ def sponge(x, layout: str):
 
 
 sponge.launches = 0
+sponge.replayed = 0
 
 
 FIELD_CHECK_ROWS = 12   # csrc/poseidon2.cu's FIELD_CHECK_ROWS: 5 lazy rows, 7 exact ones
@@ -208,3 +211,4 @@ def grind(state, pow_bits: int, max_candidates: int):
 
 
 grind.launches = 0
+grind.replayed = 0

@@ -179,9 +179,24 @@ def circuit_data_from_reference(circuit: Circuit, arrays: dict, device="cuda") -
         perm_slots=int(arrays["perm_slots"]), lookup=_lookup_info(circuit))
 
 
+def z_columns(data: CircuitData) -> list:
+    """zs columns opened at g*zeta: each challenge's permutation Z, then
+    each challenge's LogUp running sum."""
+    cfg = data.circuit.config
+    C = cfg.num_challenges
+    nchunks = cfg.num_routed_wires // cfg.permutation_chunk_size
+    z_idx = [c * nchunks for c in range(C)]
+    lk = data.lookup
+    if lk is not None:
+        cpc = lk.cols_per_challenge
+        z_idx += [C * nchunks + c * cpc + cpc - 1 for c in range(C)]
+    return z_idx
+
+
 class Backend:
     """The prover's view of a CircuitData: everything it reads per batch as
-    int64 tensors on the data's device."""
+    tensors on the data's device, made once here, so that prove_core moves
+    no host data to the device (what a CUDA graph capture requires)."""
 
     def __init__(self, data: CircuitData):
         self.device = device = data.device
@@ -198,6 +213,16 @@ class Backend:
         self.zh_inv = gl.from_u64(data.zh_inv, device)
         self.l0_lde = gl.from_u64(data.l0_lde, device)
         self.k_coeffs = gl.from_ints(circuit.k_coeffs, device)          # [nr]
+        self.z_idx = torch.tensor(z_columns(data), device=device)       # zs columns at g*zeta
+        lk = data.lookup
+        if lk is not None:
+            # the table column t(x) on H, each lookup gate's selector on H, and
+            # its looked-up wire columns and scales (in lk.gates order)
+            self.lookup_table = gl.from_u64(data.fixed_values[lk.table_idx], device)    # [n]
+            self.lookup_sels = [gl.from_u64(circuit.selectors[gi], device) for gi, _g in lk.gates]
+            cols_scales = [g.lookup_cols_scales(lk.num_batches) for _gi, g in lk.gates]
+            self.lookup_cols = [torch.tensor(c, device=device) for c, _s in cols_scales]
+            self.lookup_scales = [gl.from_ints(s, device)[None, :, None] for _c, s in cols_scales]
         _warm_tables(data, device)
 
 

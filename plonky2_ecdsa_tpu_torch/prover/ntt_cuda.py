@@ -6,7 +6,8 @@ composes two of them as ntt_pallas.four_step does; the transpose between the
 two passes is the first pass's own (transposed) store, not a copy.
 ``sub_ntt`` takes the plain torch version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``sub_ntt.launches`` counts its
-kernel launches.  Twiddle tables are built with the field on the device they
+kernel launches, ``sub_ntt.replayed`` its launches by replays of a captured
+prove (``prover/graph.py``).  Twiddle tables are built with the field on the device they
 are cached for.
 """
 
@@ -119,6 +120,7 @@ def sub_ntt(x, n_t: int, inverse: bool, pre=None, post=None, transpose_out: bool
 
 
 sub_ntt.launches = 0
+sub_ntt.replayed = 0
 
 
 def _four_step(sub, x, n: int, inverse: bool, pre, post):

@@ -3,22 +3,29 @@
 Counterpart of ``plonky2_ecdsa_tpu.prover.prover``: ``prove_core`` mirrors the
 reference's prove_core (prover.py:458-657) stage by stage, with the same
 ``stop_after`` knobs and the col axis of a device mesh (``shard``, see
-``parallel/mesh.py``), and ``make_prover`` its make_jit_prover (prover.py:855)
-with the production ``run_vals`` path: the tape's compact value table goes up,
-the wires are expanded on the device, and the proof comes back as a host
-``Proof`` of numpy u64 arrays (extension values as (c0, c1) tuples).  Field
-arithmetic is exact, so for the same witness the proof equals the reference's
-value for value, sharded or not.  The reference's streamed commit
-(``stream_commit``) has no counterpart: it bounds the commit's temporaries,
-and on an 80 GB H100 the batch's peak device memory is set later, by the
-quotient, with or without it.
+``parallel/mesh.py``), and ``Prover`` (``make_prover``) its make_jit_prover
+(prover.py:855-1048) with the production ``run_vals`` path: the tape's compact
+value table goes up, the wires are expanded on the device, and the proof
+comes back as a host ``Proof`` of numpy u64 arrays (extension values as (c0,
+c1) tuples), read back as one packed buffer (prover.py:806-838).  On a CUDA
+device a ``Prover`` captures that device side once per path and batch size
+as CUDA graphs and replays them for every batch (``_CapturedProve``,
+``graph.py``), as the reference traces it once and runs each batch as one
+device program; ``prove_core`` itself moves no host data to the device and
+reads nothing back, so it can be captured.  Field arithmetic is exact, so for the same
+witness the proof equals the reference's value for value, sharded or not,
+captured or not.  The reference's streamed commit (``stream_commit``) has no
+counterpart: it bounds the commit's temporaries, and on an 80 GB H100 the
+batch's peak device memory is set later, by the quotient, with or without it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import sys
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,9 +37,10 @@ from ..circuit.gates import PublicInputGate
 from ..fields import goldilocks as gl
 from ..hash import merkle
 from ..utils.debug import assert_witness_ok
-from . import fri, ntt
+from . import fri, graph, ntt
 from .challenger import GRIND_EXHAUSTED, Challenger
 from .data import Backend, CircuitData
+from .data import z_columns as _z_columns  # noqa: F401  (the verifier's and the tests' name)
 
 
 @dataclass
@@ -198,26 +206,11 @@ def _lde_commit_sharded(vals, N: int, cap_height: int, shard):
     return coeffs, lde, _tree_sharded(lde, cap_height, shard)
 
 
-def _z_columns(data):
-    """zs columns opened at g*zeta: each challenge's permutation Z, then
-    each challenge's LogUp running sum."""
-    cfg = data.circuit.config
-    C = cfg.num_challenges
-    nchunks = cfg.num_routed_wires // cfg.permutation_chunk_size
-    z_idx = [c * nchunks for c in range(C)]
-    lk = data.lookup
-    if lk is not None:
-        cpc = lk.cols_per_challenge
-        z_idx += [C * nchunks + c * cpc + cpc - 1 for c in range(C)]
-    return z_idx
-
-
-def _lookup_terms(lk, gate, wires, alpha):
-    """One lookup gate's 3-term batches over [B, T, m] wires: (D_b, N_b) with
-    D = d0 d1 d2 and N = d0 d1 + (d0 + d1) d2, d = alpha - scale * wire."""
-    cols, scales = gate.lookup_cols_scales(lk.num_batches)
-    sc = gl.from_ints(scales, wires.device)[None, :, None]
-    d = gl.sub(alpha[:, None, None], gl.mul(wires[:, cols], sc))
+def _lookup_terms(bk, lk, g: int, wires, alpha):
+    """Lookup gate g's (of lk.gates) 3-term batches over [B, T, m] wires:
+    (D_b, N_b) with D = d0 d1 d2 and N = d0 d1 + (d0 + d1) d2, d = alpha -
+    scale * wire."""
+    d = gl.sub(alpha[:, None, None], gl.mul(wires[:, bk.lookup_cols[g]], bk.lookup_scales[g]))
     B, _T, m = d.shape
     d = d.reshape(B, lk.num_batches, 3, m)
     d0, d1, d2 = d[:, :, 0], d[:, :, 1], d[:, :, 2]
@@ -225,29 +218,25 @@ def _lookup_terms(lk, gate, wires, alpha):
     return gl.mul(d01, d2), gl.add(d01, gl.mul(gl.add(d0, d1), d2))
 
 
-def _lookup_polys_all(data, wires, alphas):
+def _lookup_polys_all(data, bk, wires, alphas):
     """LogUp committed columns on H, per challenge: helpers h_b, the table
     helper m / (alpha - t) and the running sum Z (prover.py:327).  All
     denominators share one batch inversion."""
-    circuit = data.circuit
     lk = data.lookup
     n = data.n
     dev = wires.device
     B = wires.shape[0]
     nb = lk.num_batches
-    t = np.arange(n, dtype=np.uint64)
-    t[1 << circuit.config.range_lookup_limb_bits:] = 0
-    t = gl.from_u64(t, dev)
-    sels = [gl.from_u64(circuit.selectors[gi], dev) for gi, _g in lk.gates]
+    sels = bk.lookup_sels
 
     per_c, dens = [], []
     for alpha in alphas:
         gate_Ns = []
-        for _gi, g_ in lk.gates:
-            D, Ng = _lookup_terms(lk, g_, wires, alpha)
+        for g in range(len(lk.gates)):
+            D, Ng = _lookup_terms(bk, lk, g, wires, alpha)
             dens.append(D)
             gate_Ns.append(Ng)
-        dens.append(gl.sub(alpha[:, None], t)[:, None])
+        dens.append(gl.sub(alpha[:, None], bk.lookup_table)[:, None])
         per_c.append(gate_Ns)
     inv = _batch_inverse_axis1(torch.cat(dens, 1))
     G = len(lk.gates)
@@ -310,92 +299,95 @@ def _add_gate_constraints(comb, gates, w, fixed, pic, apows, perm_slots: int, nu
             comb[c] = gl.add(comb[c], gl.mul(fixed[num_consts + gi], term))
 
 
-def _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas, gammas,
-                      alphas, lk_alphas, shard=None):
-    """Combined constraints / Z_H over the LDE coset -> [B, C, N]; with a
-    shard each rank evaluates its domain slice and the slices are gathered."""
+def _quotient_chunk(data, bk, fr, w, fixed, zsc, zshc, pic, l0, zh, ids):
+    """Combined constraints / Z_H over one domain slice of m points -> [B,
+    C, m], from the slice's wires LDE w [B, W, m], fixed LDE [F0, m], zs LDE
+    zsc [B, Z, m], Z columns one row on zshc [B, len(z_idx), m], PI LDE pic
+    [B, K, m], L_0 l0 [m], 1 / Z_H zh [m] and identity columns ids [nr, m]
+    (_quotient_slices), and the batch's challenges in `fr`."""
     circuit = data.circuit
     cfg = circuit.config
-    n, N = data.n, data.N
     C = cfg.num_challenges
     nr = cfg.num_routed_wires
     chunk = cfg.permutation_chunk_size
     nchunks = nr // chunk
     S = len(circuit.gates)
-    B = wires_lde.shape[0]
+    B = w.shape[0]
     sel_off = cfg.num_constant_cols
     lk = data.lookup
-    apows = [gl.powers(a, data.num_constraint_slots) for a in alphas]   # [B, slots]
-    ids_full = gl.mul(bk.x[None], bk.k_coeffs[:, None])                # [nr, N]
-    zcols = _z_columns(data)
-    zsh_full = torch.roll(zs_lde[:, zcols], -(N // n), -1)
+    apows = fr.apows
+    shape = (B, w.shape[-1])
+    sig = fixed[sel_off + S:sel_off + S + nr]
+    comb = [torch.zeros(shape, dtype=torch.int64, device=w.device) for _ in range(C)]
+    for c in range(C):
+        beta = fr.betas[c][:, None, None]
+        gamma = fr.gammas[c][:, None, None]
+        f = gl.add(gl.add(w[:, :nr], gl.mul(ids[None], beta)), gamma)
+        g = gl.add(gl.add(w[:, :nr], gl.mul(sig[None], beta)), gamma)
+        fp = _prod_last(f.reshape(B, nchunks, chunk, -1).movedim(2, -1))
+        gp = _prod_last(g.reshape(B, nchunks, chunk, -1).movedim(2, -1))
+        z = zsc[:, c * nchunks]
+        prev = zsc[:, c * nchunks: (c + 1) * nchunks]
+        left = torch.cat([prev[:, 1:], zshc[:, c][:, None]], 1)
+        term = gl.sub(gl.mul(left, gp), gl.mul(prev, fp))              # [B, nchunks, m]
+        wt = gl.mul(term, apows[c][:, 1:1 + nchunks, None])
+        comb[c] = gl.add(comb[c], gl.sum_mod(wt, 1))
+        l0z = gl.mul(l0, gl.sub(z, 1))
+        comb[c] = gl.add(comb[c], gl.mul(l0z, apows[c][:, 0:1]))
 
-    def eval_chunk(sl):
-        w = wires_lde[..., sl]
-        fixed = bk.fixed_lde[..., sl]
-        zsc = zs_lde[..., sl]
-        zshc = zsh_full[..., sl]
-        pic = pi_lde[..., sl]
-        l0 = bk.l0_lde[sl]
-        shape = (B, w.shape[-1])
-        sig = fixed[sel_off + S:sel_off + S + nr]
-        comb = [torch.zeros(shape, dtype=torch.int64, device=w.device) for _ in range(C)]
+    _add_gate_constraints(comb, circuit.gates, w, fixed, pic, apows, data.perm_slots,
+                          cfg.num_constant_cols)
+
+    if lk is not None:
+        nb = lk.num_batches
+        base_slot = data.num_constraint_slots - lk.slots
+        tv = fixed[lk.table_idx]
+        mv = w[:, lk.mult_col]
         for c in range(C):
-            beta = betas[c][:, None, None]
-            gamma = gammas[c][:, None, None]
-            f = gl.add(gl.add(w[:, :nr], gl.mul(ids_full[None, :, sl], beta)), gamma)
-            g = gl.add(gl.add(w[:, :nr], gl.mul(sig[None], beta)), gamma)
-            fp = _prod_last(f.reshape(B, nchunks, chunk, -1).movedim(2, -1))
-            gp = _prod_last(g.reshape(B, nchunks, chunk, -1).movedim(2, -1))
-            z = zsc[:, c * nchunks]
-            prev = zsc[:, c * nchunks: (c + 1) * nchunks]
-            left = torch.cat([prev[:, 1:], zshc[:, c][:, None]], 1)
-            term = gl.sub(gl.mul(left, gp), gl.mul(prev, fp))              # [B, nchunks, m]
-            wt = gl.mul(term, apows[c][:, 1:1 + nchunks, None])
+            a = fr.lk_alphas[c]
+            ap = apows[c]
+            zoff = C * nchunks + c * lk.cols_per_challenge
+            h_tab = zsc[:, zoff + nb]
+            # slot 0: h_tab * (alpha - t) - m
+            t0 = gl.sub(gl.mul(h_tab, gl.sub(a[:, None], tv)), mv)
+            comb[c] = gl.add(comb[c], gl.mul(t0, ap[:, base_slot:base_slot + 1]))
+            # slots 1..nb: sum over gates of sel * (h_b * D_b - N_b)
+            hb = zsc[:, zoff:zoff + nb]
+            cons = torch.zeros_like(hb)
+            selsum = torch.zeros(shape, dtype=torch.int64, device=w.device)
+            for g, (gi, _g) in enumerate(lk.gates):
+                sel = fixed[sel_off + gi]
+                D, Ng = _lookup_terms(bk, lk, g, w, a)
+                cons = gl.add(cons, gl.mul(gl.sub(gl.mul(hb, D), Ng), sel))
+                selsum = gl.add(selsum, sel.expand(shape))
+            wt = gl.mul(cons, ap[:, base_slot + 1:base_slot + 1 + nb, None])
             comb[c] = gl.add(comb[c], gl.sum_mod(wt, 1))
-            l0z = gl.mul(l0, gl.sub(z, 1))
-            comb[c] = gl.add(comb[c], gl.mul(l0z, apows[c][:, 0:1]))
+            # slot nb+1: Z(gx) - Z(x) - sel_sum * sum_b h_b + h_tab
+            zlk = zsc[:, zoff + nb + 1]
+            step = gl.add(gl.sub(gl.sub(zshc[:, C + c], zlk),
+                                 gl.mul(selsum, gl.sum_mod(hb, 1))), h_tab)
+            comb[c] = gl.add(comb[c], gl.mul(step, ap[:, base_slot + 1 + nb:base_slot + 2 + nb]))
+            # slot nb+2: L0 * Z (the running sum starts at zero)
+            comb[c] = gl.add(comb[c], gl.mul(gl.mul(l0, zlk),
+                                             ap[:, base_slot + 2 + nb:base_slot + 3 + nb]))
 
-        _add_gate_constraints(comb, circuit.gates, w, fixed, pic, apows, data.perm_slots,
-                              cfg.num_constant_cols)
+    return torch.stack([gl.mul(q, zh) for q in comb], 1)
 
-        if lk is not None:
-            nb = lk.num_batches
-            base_slot = data.num_constraint_slots - lk.slots
-            tv = fixed[lk.table_idx]
-            mv = w[:, lk.mult_col]
-            for c in range(C):
-                a = lk_alphas[c]
-                ap = apows[c]
-                zoff = C * nchunks + c * lk.cols_per_challenge
-                h_tab = zsc[:, zoff + nb]
-                # slot 0: h_tab * (alpha - t) - m
-                t0 = gl.sub(gl.mul(h_tab, gl.sub(a[:, None], tv)), mv)
-                comb[c] = gl.add(comb[c], gl.mul(t0, ap[:, base_slot:base_slot + 1]))
-                # slots 1..nb: sum over gates of sel * (h_b * D_b - N_b)
-                hb = zsc[:, zoff:zoff + nb]
-                cons = torch.zeros_like(hb)
-                selsum = torch.zeros(shape, dtype=torch.int64, device=w.device)
-                for gi, g_ in lk.gates:
-                    sel = fixed[sel_off + gi]
-                    D, Ng = _lookup_terms(lk, g_, w, a)
-                    cons = gl.add(cons, gl.mul(gl.sub(gl.mul(hb, D), Ng), sel))
-                    selsum = gl.add(selsum, sel.expand(shape))
-                wt = gl.mul(cons, ap[:, base_slot + 1:base_slot + 1 + nb, None])
-                comb[c] = gl.add(comb[c], gl.sum_mod(wt, 1))
-                # slot nb+1: Z(gx) - Z(x) - sel_sum * sum_b h_b + h_tab
-                zlk = zsc[:, zoff + nb + 1]
-                step = gl.add(gl.sub(gl.sub(zshc[:, C + c], zlk),
-                                     gl.mul(selsum, gl.sum_mod(hb, 1))), h_tab)
-                comb[c] = gl.add(comb[c], gl.mul(step, ap[:, base_slot + 1 + nb:base_slot + 2 + nb]))
-                # slot nb+2: L0 * Z (the running sum starts at zero)
-                comb[c] = gl.add(comb[c], gl.mul(gl.mul(l0, zlk),
-                                                 ap[:, base_slot + 2 + nb:base_slot + 3 + nb]))
 
-        zh = bk.zh_inv[sl]
-        return (torch.stack([gl.mul(q, zh) for q in comb], 1),)
+def _quotient_slices(bk, fr, sl) -> tuple:
+    """_quotient_chunk's per-slice inputs over the domain slice sl (views)."""
+    return (fr.wires_lde[..., sl], bk.fixed_lde[..., sl], fr.zs_lde[..., sl],
+            fr.zsh_full[..., sl], fr.pi_lde[..., sl], bk.l0_lde[sl], bk.zh_inv[sl],
+            fr.ids_full[:, sl])
 
-    return _over_domain(eval_chunk, N, shard)[0]
+
+def _compute_quotient(data, bk, fr, shard=None):
+    """Combined constraints / Z_H over the LDE coset -> [B, C, N]; with a
+    shard each rank evaluates its domain slice and the slices are gathered."""
+    def eval_chunk(sl):
+        return (_quotient_chunk(data, bk, fr, *_quotient_slices(bk, fr, sl)),)
+
+    return _over_domain(eval_chunk, data.N, shard)[0]
 
 
 def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
@@ -442,16 +434,32 @@ def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
 STOP_AFTER = ("commit", "challenges", "zs_vals", "zs", "quotient", "openings", "fri_all")
 
 
-def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
-               shard=None):
-    """(wires [B, W, n], PI polys [B, K, n], PI values [B, npis]) int64 on
-    the backend's device -> Proof of int64 tensors (see to_host).
-    stop_after: one of STOP_AFTER, to compare one stage with the reference.
-    shard: (process group, n_shards) of the mesh's col axis: the commits'
-    columns and the pointwise stages' domain are split over the group's
-    ranks, every other stage runs replicated, and every rank returns the
-    single-device proof."""
-    assert stop_after in (None,) + STOP_AFTER, stop_after
+@dataclass
+class _Front:
+    """What the stages up to the zs commit hand to the quotient and the
+    stages after it: the two commits, the transcript, the challenges, and
+    the quotient's per-batch tables."""
+    ch: Challenger
+    wires_coeffs: torch.Tensor
+    wires_lde: torch.Tensor
+    wires_tree: merkle.MerkleTree
+    pi_lde: torch.Tensor
+    betas: list
+    gammas: list
+    lk_alphas: list
+    num_zs: int
+    zs_coeffs: torch.Tensor
+    zs_lde: torch.Tensor
+    zs_tree: merkle.MerkleTree
+    alphas: list
+    apows: list               # per challenge alpha^i [B, slots]
+    ids_full: torch.Tensor    # [nr, N] identity permutation columns on the LDE coset
+    zsh_full: torch.Tensor    # [B, len(z_idx), N]: the opened Z columns one row of H on
+
+
+def _front(data, bk: Backend, wires, pi, pis, stop_after=None, shard=None):
+    """prove_core's stages up to the zs commit and the quotient's challenges
+    -> _Front, or the value of a stop_after stage among them."""
     cfg = data.circuit.config
     n, N = data.n, data.N
     C = cfg.num_challenges
@@ -501,7 +509,7 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
         zs_list.append(z)
         zs_list += [gl.mul(z, R[t]) for t in range(nchunks - 1)]
     if lk is not None:
-        for cols in _lookup_polys_all(data, wires, lk_alphas):
+        for cols in _lookup_polys_all(data, bk, wires, lk_alphas):
             zs_list += cols
     zs_vals = torch.stack(zs_list, 1)
     if stop_after == "zs_vals":
@@ -514,10 +522,25 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
         return zs_tree.cap
     ch.observe_cap(zs_tree.cap)
     alphas = [ch.get_challenge() for _ in range(C)]
+    return _Front(
+        ch=ch, wires_coeffs=wires_coeffs, wires_lde=wires_lde, wires_tree=wires_tree,
+        pi_lde=pi_lde, betas=betas, gammas=gammas, lk_alphas=lk_alphas,
+        num_zs=zs_vals.shape[1], zs_coeffs=zs_coeffs, zs_lde=zs_lde, zs_tree=zs_tree,
+        alphas=alphas, apows=[gl.powers(a, data.num_constraint_slots) for a in alphas],
+        ids_full=gl.mul(bk.x[None], bk.k_coeffs[:, None]),
+        zsh_full=torch.roll(zs_lde[:, bk.z_idx], -(N // n), -1))
 
-    # ---- quotient -----------------------------------------------------------
-    quot_vals = _compute_quotient(data, bk, wires_lde, zs_lde, pi_lde, betas,
-                                  gammas, alphas, lk_alphas, shard)
+
+def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=None):
+    """prove_core's stages from the quotient's values [B, C, N] on: its
+    commit, the openings, FRI and the initial openings -> Proof, or the value
+    of a stop_after stage among them."""
+    cfg = data.circuit.config
+    n, N = data.n, data.N
+    C = cfg.num_challenges
+    B = quot_vals.shape[0]
+    caph = cfg.fri.cap_height
+    ch = fr.ch
     rate = N // n
     chunks = ntt.coset_intt(quot_vals).reshape(B, C * rate, n)
     quot_lde = ntt.coset_ntt_from_coeffs(chunks, N)
@@ -532,23 +555,23 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
 
     # ---- openings -----------------------------------------------------------
     layout = OpeningLayout(num_fixed=data.fixed_values.shape[0], num_wires=cfg.num_wires,
-                           num_zs_partials=zs_vals.shape[1], num_quotient=C * rate)
+                           num_zs_partials=fr.num_zs, num_quotient=C * rate)
     zp = tuple(p[:, None] for p in ntt.ext_powers(zeta, n))       # [B, 1, n]
     gz = (gl.mul(zeta[0], data.g), gl.mul(zeta[1], data.g))
     gzp = tuple(p[:, None] for p in ntt.ext_powers(gz, n))
-    z_idx = _z_columns(data)
+    z_idx = bk.z_idx
     openings0 = _ext_cat([ntt.eval_poly_ext(bk.fixed_coeffs[None], zp),
-                          ntt.eval_poly_ext(wires_coeffs, zp),
-                          ntt.eval_poly_ext(zs_coeffs, zp),
+                          ntt.eval_poly_ext(fr.wires_coeffs, zp),
+                          ntt.eval_poly_ext(fr.zs_coeffs, zp),
                           ntt.eval_poly_ext(chunks, zp)])
-    open_zs_gzeta = ntt.eval_poly_ext(zs_coeffs[:, z_idx], gzp)
+    open_zs_gzeta = ntt.eval_poly_ext(fr.zs_coeffs[:, z_idx], gzp)
     if stop_after == "openings":
         return openings0
     ch.observe_ext_array(openings0)
     ch.observe_ext_array(open_zs_gzeta)
 
     # ---- FRI ----------------------------------------------------------------
-    F = _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
+    F = _reduced_poly(data, bk, layout, fr.wires_lde, fr.zs_lde, quot_lde, openings0,
                       open_zs_gzeta, zeta, gz, ch.get_ext(), z_idx, shard)
     fri_proof = fri.fri_prove(ch, F, N, cfg)
     if stop_after == "fri_all":
@@ -561,16 +584,34 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
     fixed_tree = merkle.MerkleTree(levels=bk.fixed_levels, cap_height=bk.fixed_cap_height)
     leaves["fixed"] = bk.fixed_lde[:, idx].permute(1, 2, 0)       # [B, Q, k]
     paths["fixed"] = fixed_tree.open(idx)
-    for name, lde, tree in (("wires", wires_lde, wires_tree), ("zs", zs_lde, zs_tree),
+    for name, lde, tree in (("wires", fr.wires_lde, fr.wires_tree), ("zs", fr.zs_lde, fr.zs_tree),
                             ("quot", quot_lde, quot_tree)):
         k = lde.shape[1]
         leaves[name] = torch.gather(lde, 2, idx[:, None, :].expand(B, k, Q)).transpose(1, 2)
         paths[name] = tree.open(idx)
 
-    return Proof(pis=pis, wires_cap=wires_tree.cap, zs_cap=zs_tree.cap,
+    return Proof(pis=pis, wires_cap=fr.wires_tree.cap, zs_cap=fr.zs_tree.cap,
                  quotient_cap=quot_tree.cap, openings0=openings0,
                  openings1=open_zs_gzeta, fri_proof=fri_proof,
                  initial_leaves=leaves, initial_paths=paths, layout=layout)
+
+
+def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
+               shard=None):
+    """(wires [B, W, n], PI polys [B, K, n], PI values [B, npis]) int64 on
+    the backend's device -> Proof of int64 tensors (see to_host).
+    stop_after: one of STOP_AFTER, to compare one stage with the reference.
+    shard: (process group, n_shards) of the mesh's col axis: the commits'
+    columns and the pointwise stages' domain are split over the group's
+    ranks, every other stage runs replicated, and every rank returns the
+    single-device proof.  The stages run as _front, the quotient domain
+    chunk by domain chunk (_quotient_chunk), and _back: the three parts that
+    a Prover on a CUDA device captures."""
+    assert stop_after in (None,) + STOP_AFTER, stop_after
+    fr = _front(data, bk, wires, pi, pis, stop_after, shard)
+    if not isinstance(fr, _Front):
+        return fr
+    return _back(data, bk, fr, _compute_quotient(data, bk, fr, shard), pis, stop_after, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -588,21 +629,80 @@ def _map_leaves(fn, x):
     return None if x is None else fn(x)
 
 
+# The readback of a device proof as ONE packed buffer (prover.py:806-838):
+# every leaf but the PIs (the host has them), flattened in proof_leaves order
+# and joined into one int64 tensor on the device, one device-to-host copy, and
+# the host Proof cut back out of it with numpy.
+_PROOF_PARTS = ("wires_cap", "zs_cap", "quotient_cap", "openings0", "openings1",
+                "initial_leaves", "initial_paths")
+_FRI_PARTS = ("caps", "final_coeffs", "indices", "layer_leaves", "layer_paths", "pow_witness")
+
+
+def _proof_parts(p: Proof) -> list:
+    return [getattr(p, k) for k in _PROOF_PARTS] + [getattr(p.fri_proof, k) for k in _FRI_PARTS]
+
+
+def _flatten(x, out: list):
+    """x with each array replaced by its position in `out`, where it is
+    appended in proof_leaves order (a dict's entries by sorted key)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_flatten(v, out) for v in x)
+    if isinstance(x, dict):
+        pos = {k: _flatten(x[k], out) for k in sorted(x)}
+        return {k: pos[k] for k in x}
+    if x is None:
+        return None
+    out.append(x)
+    return len(out) - 1
+
+
+def _unflatten(skeleton, arrays: list):
+    if isinstance(skeleton, (tuple, list)):
+        return type(skeleton)(_unflatten(v, arrays) for v in skeleton)
+    if isinstance(skeleton, dict):
+        return {k: _unflatten(v, arrays) for k, v in skeleton.items()}
+    return None if skeleton is None else arrays[skeleton]
+
+
+def _pack_spec(p: Proof):
+    """(skeleton, shapes, host dtypes, layout) of a device Proof: what
+    _unpack_proof needs to cut the packed buffer back into a host Proof.
+    Every leaf comes back u64 but the query indices, int64."""
+    leaves: list = []
+    skeleton = _flatten(_proof_parts(p), leaves)
+    idx = p.fri_proof.indices
+    dtypes = [np.dtype(np.int64 if t is idx else np.uint64) for t in leaves]
+    return skeleton, [tuple(t.shape) for t in leaves], dtypes, p.layout
+
+
+def _pack_proof(p: Proof):
+    """A device Proof's leaves (PIs excluded) as one flat int64 tensor."""
+    leaves: list = []
+    _flatten(_proof_parts(p), leaves)
+    return torch.cat([t.reshape(-1) for t in leaves])
+
+
+def _unpack_proof(buf: np.ndarray, spec, pis: np.ndarray) -> Proof:
+    """The packed buffer (int64 numpy) -> host Proof: numpy u64 everywhere,
+    the query indices int64, each leaf an array of its own."""
+    skeleton, shapes, dtypes, layout = spec
+    arrays, off = [], 0
+    for shape, dt in zip(shapes, dtypes):
+        k = math.prod(shape)
+        arrays.append(buf[off:off + k].view(dt).reshape(shape).copy())
+        off += k
+    assert off == buf.size, (off, buf.size)
+    parts = _unflatten(skeleton, arrays)
+    main, fri_parts = parts[:len(_PROOF_PARTS)], parts[len(_PROOF_PARTS):]
+    return Proof(pis=np.asarray(pis, dtype=np.uint64), layout=layout,
+                 fri_proof=fri.FriProof(**dict(zip(_FRI_PARTS, fri_parts))),
+                 **dict(zip(_PROOF_PARTS, main)))
+
+
 def to_host(p: Proof, pis: np.ndarray) -> Proof:
     """A proof of device tensors -> host Proof: numpy u64 everywhere, the
-    query indices int64."""
-    def h(x):
-        return _map_leaves(gl.to_u64, x)
-
-    fp = p.fri_proof
-    return Proof(
-        pis=np.asarray(pis, dtype=np.uint64), wires_cap=h(p.wires_cap), zs_cap=h(p.zs_cap),
-        quotient_cap=h(p.quotient_cap), openings0=h(p.openings0), openings1=h(p.openings1),
-        fri_proof=fri.FriProof(
-            caps=h(fp.caps), final_coeffs=h(fp.final_coeffs),
-            indices=fp.indices.cpu().numpy(), layer_leaves=h(fp.layer_leaves),
-            layer_paths=h(fp.layer_paths), pow_witness=h(fp.pow_witness)),
-        initial_leaves=h(p.initial_leaves), initial_paths=h(p.initial_paths), layout=p.layout)
+    query indices int64 (one packed readback)."""
+    return _unpack_proof(_pack_proof(p).cpu().numpy(), _pack_spec(p), pis)
 
 
 def check_grind(proof: Proof):
@@ -788,8 +888,19 @@ class Prover:
     compacted table goes up (a u32 plane for the values statically known
     below 2^32, u64 for the rest, range-lookup limbs dropped), the wire,
     PI-polynomial and PI tensors are gathered and the limbs re-derived on the
-    device, and the proof comes back as a host Proof.  shard is prove_core's
-    (the mesh prover passes its col axis)."""
+    device, and the proof comes back as a host Proof.
+
+    On a CUDA device the device side, from the compact table to the packed
+    proof buffer, runs as CUDA graphs: the first dispatch of a (path, batch
+    size) warms up, captures and instantiates them (``_CapturedProve``;
+    ``graph_stats`` keeps their set-up figures), and every batch, the first
+    included, replays them and reads the proof back as one copy.  The paths
+    are "vals" (dispatch_vals) and "wide" (dispatch, the full witness;
+    captured at its first use).  A capture that fails raises.  The graphs of
+    one Prover share one memory pool, which goes with the Prover or with
+    release().  On the CPU, and with `shard` (prove_core's col axis of a
+    mesh: its collectives are not captured), every dispatch runs prove_core
+    eagerly."""
 
     def __init__(self, data: CircuitData, shard=None):
         self.data = data
@@ -804,6 +915,21 @@ class Prover:
         self._pit = torch.from_numpy(pit).to(dev)
         self._rows = [torch.from_numpy(r).to(dev) for r in rows_arrays]
         self._host_map: np.ndarray | None = None
+        self._graphs: dict = {}
+        self._pool = None
+
+    @property
+    def graph_stats(self) -> dict:
+        """{(path, B): the set-up figures of its graphs (_CapturedProve.stats)}."""
+        return {key: g.stats() for key, g in self._graphs.items()}
+
+    def release(self):
+        """Drop the captured graphs and their memory pool."""
+        self._graphs.clear()
+        self._pool = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def _vals_split(self, vals: np.ndarray):
         """[T, B] u64 -> (narrow u32 [B, Tn], wide u64 [B, Tw + 1]); the last
@@ -854,36 +980,167 @@ class Prover:
         vz = np.concatenate([vals, np.zeros((1, B), np.uint64)])
         return vz[self._host_map].reshape(num_wires, n, B)
 
+    def _replay(self, path: str, expand, host_inputs):
+        """Replay the graphs of (path, B), capturing them first if new."""
+        key = (path, host_inputs[0].shape[0])
+        captured = self._graphs.get(key)
+        if captured is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            captured = self._graphs[key] = _CapturedProve(self, expand, host_inputs)
+        return captured(host_inputs)
+
     def dispatch(self, W: np.ndarray, pis: np.ndarray):
-        """Upload a full witness W [num_wires, n, B] u64 and enqueue the
-        prove; returns a handle for collect()."""
+        """Enqueue the prove of a full witness W [num_wires, n, B] u64;
+        returns a handle for collect()."""
+        if self.device.type == "cuda" and self.shard is None:
+            wires, pi_vals = host_prep(self.data, W, pis)
+            host = [np.asarray(a, np.uint64).view(np.int64) for a in (wires, pi_vals, pis)]
+            return self._replay("wide", lambda *t: t, host), pis
         wires, pi, pis_dev = _inputs_to_device(self.data, W, pis)
         return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
 
     def dispatch_vals(self, vals: np.ndarray, pis: np.ndarray):
-        """Upload the compact table and enqueue the prove; returns a handle
-        for collect().  On a narrow-plane violation the batch is not lost: a
-        warning goes to stderr and the table is expanded on the host and
-        proved through the full-witness path, on the same device with the
-        same kernels (slower: the whole wire tensor goes up)."""
+        """Enqueue the prove of a value table; returns a handle for collect().
+        Batch k + 1 may be dispatched before batch k is collected.  On a
+        narrow-plane violation the batch is not lost: a warning goes to stderr
+        and the table is expanded on the host and proved through the
+        full-witness path, on the same device with the same kernels (slower:
+        the whole wire tensor goes up)."""
         try:
             vn, vw = self._vals_split(vals)
         except NarrowMisclassification as e:
             print(f"[prover] WARNING: {e}; falling back to the wide witness "
                   "path for this batch", file=sys.stderr)
             return self.dispatch(self._expand_host(vals), pis)
-        narrow = torch.from_numpy(vn.view(np.int32)).to(self.device)
-        wires, pi, pis_dev = self._expand(narrow, gl.from_u64(vw, self.device))
+        vn, vw = vn.view(np.int32), vw.view(np.int64)
+        if self.device.type == "cuda" and self.shard is None:
+            return self._replay("vals", self._expand, (vn, vw)), pis
+        wires, pi, pis_dev = self._expand(torch.from_numpy(vn).to(self.device),
+                                          torch.from_numpy(vw).to(self.device))
         return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
 
     def collect(self, handle) -> Proof:
-        proof, pis = handle
-        proof = to_host(proof, pis)
+        """The host Proof of a dispatched batch (waits for it)."""
+        ticket, pis = handle
+        if isinstance(ticket, Proof):
+            proof = to_host(ticket, pis)
+        else:
+            host, done, spec = ticket
+            done.synchronize()
+            proof = _unpack_proof(host.numpy(), spec, pis)
         check_grind(proof)
         return proof
 
     def run_vals(self, vals: np.ndarray, pis: np.ndarray) -> Proof:
         return self.collect(self.dispatch_vals(vals, pis))
+
+
+class _CapturedProve:
+    """The device side of one (path, B) of a Prover, captured.  Three graphs,
+    which share the Prover's memory pool: "front" (the upload's expand, then
+    _front: the commits and the challenges up to the quotient), "chunk" (one
+    domain chunk of the quotient, _quotient_chunk, on static chunk buffers)
+    and "back" (_back and the pack).  A batch loads the inputs, replays
+    front, then for each domain chunk copies its slices into the chunk
+    buffers, replays chunk and copies its values into the quotient, then
+    replays back and reads the packed proof back.  The quotient runs as one
+    chunk graph replayed per chunk, not inside one whole-program graph,
+    because a graph's host memory grows with its nodes: the recursion's outer
+    proof as one graph is 1 084 831 nodes and grew the process by 8.3 GB,
+    where these three hold 266 417 nodes and grew it by 1.0 GB (H100 80GB
+    HBM3 host, PyTorch 2.11, CUDA 12.8; profile_stages --whole-graph)."""
+
+    def __init__(self, run: Prover, expand, host_inputs):
+        data, bk, dev = run.data, run.backend, run.device
+        self.inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
+                       for a in host_inputs]
+        self._load(host_inputs)
+        # the warm-up, on a side stream as torch.cuda.graphs prescribes: it
+        # makes every table the prover caches on the device (NTT twiddles and
+        # coset powers, FRI domain tables, the gates' constant columns, the
+        # kernels' round constants), which a capture must only read
+        here, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(here)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            prove_core(data, bk, *expand(*self.inputs))
+        here.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+        rss = graph.rss_bytes()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        ins = {}
+
+        def front():
+            ins["wires"], ins["pi"], ins["pis"] = expand(*self.inputs)
+            return _front(data, bk, ins["wires"], ins["pi"], ins["pis"])
+
+        self.front = graph.Captured(front, dev, run._pool)
+        fr = self.front.out
+        self.domain = _chunks(data.N)
+        self.slices = [_quotient_slices(bk, fr, sl) for sl in self.domain]
+        self.bufs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in self.slices[0]]
+        self.chunk = graph.Captured(lambda: _quotient_chunk(data, bk, fr, *self.bufs), dev,
+                                    run._pool)
+        B, C = self.chunk.out.shape[:2]
+        self.quot_vals = torch.empty((B, C, data.N), dtype=torch.int64, device=dev)
+
+        def back():
+            proof = _back(data, bk, fr, self.quot_vals, ins["pis"])
+            return _pack_proof(proof), _pack_spec(proof)
+
+        self.back = graph.Captured(back, dev, run._pool)
+        self.out, self.spec = self.back.out
+        self.host_bytes = graph.rss_bytes() - rss
+        self.device_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def _load(self, host_inputs):
+        """Copy the inputs (numpy) into the static buffers, staged through
+        pinned memory so that the copies queue behind the stream's work."""
+        for buf, a in zip(self.inputs, host_inputs):
+            if tuple(buf.shape) != a.shape:
+                raise ValueError(f"captured for {tuple(buf.shape)}, given {a.shape}")
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)).pin_memory(), non_blocking=True)
+
+    def __call__(self, host_inputs):
+        """Queue one batch on the current stream -> (pinned host buffer, event
+        after its copy, spec).  The next batch's replays write the packed
+        buffer only after this copy, which the same stream runs first."""
+        self._load(host_inputs)
+        self.front.replay()
+        for sl, views in zip(self.domain, self.slices):
+            for buf, v in zip(self.bufs, views):
+                buf.copy_(v)
+            self.chunk.replay()
+            self.quot_vals[..., sl].copy_(self.chunk.out)
+        self.back.replay()
+        host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
+        host.copy_(self.out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done, self.spec
+
+    def stats(self) -> dict:
+        """Set-up figures: seconds of the warm-up, of the captures on the host
+        and of the instantiations; each graph's nodes and the nodes a batch
+        runs; the growth of the process's resident memory over the captures
+        (a lower bound of the graphs' host memory: they reuse what the
+        warm-up freed); the device memory the captures reserved (the pool,
+        the chunk buffers and the quotient's values); kernel launches a
+        batch."""
+        parts = {"front": self.front, "chunk": self.chunk, "back": self.back}
+        reps = {"front": 1, "chunk": len(self.domain), "back": 1}
+        launches = {k.__name__: sum(reps[p] * g.launches[k] for p, g in parts.items())
+                    for k in graph.KERNELS}
+        return dict(warmup_s=self.warmup_s,
+                    capture_s=sum(g.capture_s for g in parts.values()),
+                    instantiate_s=sum(g.instantiate_s for g in parts.values()),
+                    nodes={p: g.nodes for p, g in parts.items()},
+                    nodes_per_batch=sum(reps[p] * g.nodes for p, g in parts.items()),
+                    domain_chunks=len(self.domain), host_bytes=self.host_bytes,
+                    device_bytes=self.device_bytes, launches=launches)
 
 
 def make_prover(data: CircuitData) -> Prover:

@@ -8,9 +8,11 @@ recomputes the file with the reference's numpy path: for secp256k1 and for
 P-256, the fixed commit, the wires commit and one whole B=1 proof; the demo
 recursion (the demo inner proof at B=2, its verifier circuit's value table,
 fixed cap and outer proof); and the verifier circuit of the secp256k1 circuit
-under recursion_ecc_config (its structure and its fixed cap).  No witness or
-proof of that production verifier circuit is frozen: the reference's numpy
-tape alone would take about 15 minutes of the run.  The tests here check
+under recursion_ecc_config (its structure, its fixed cap, and its value table
+at B=1 over the reference's B=1 proof of the first statement of seed 11, the
+lane that the GPU smoke run's B=8 outer witness starts with).  That value
+table takes the reference's numpy tape about 15 minutes; no proof of the
+production verifier circuit is frozen.  The tests here check
 that the file holds what the reference gives where that is quick (the demo
 proof), and that the port on the CPU meets the same values (the production
 verifier circuit's fixed cap only in the slow set: its commit at 2^17 takes
@@ -52,6 +54,7 @@ from test_torch_recursive_proof import (DEMO_BATCH as REC_BATCH, DEMO_SEED as RE
 ANCHORS = os.path.join(ROOT, "plonky2_ecdsa_tpu_torch", "vectors", "anchors.json")
 DEMO_BATCH = 2
 SEED = 3
+REC_OUTER_SEED = 11      # the smoke run's inner statements of the recursion path
 # Test processes run side by side: with a thread per core in each of them the
 # full-width fixed commit below spends minutes spinning on oversubscribed cores.
 torch.set_num_threads(2)
@@ -94,20 +97,33 @@ def reference_demo_recursion() -> dict:
             "recursion_demo_lane0_proof_sha256": prover.proof_digest(proof, lane=0)}
 
 
-def reference_production_outer(idata) -> dict:
-    """Anchor (b): the verifier circuit of the secp256k1 circuit (its fixed
-    data `idata`) under recursion_ecc_config: structure and fixed cap."""
+def reference_production_outer(system) -> dict:
+    """Anchor (b): the verifier circuit of the secp256k1 circuit (the
+    reference's `system`) under recursion_ecc_config: structure, fixed cap,
+    and the value table at B=1 over the B=1 proof of the first statement of
+    seed REC_OUTER_SEED (lane 0 of the smoke run's B=8 outer witness)."""
     os.environ["PLONKY2_TPU_HOST_BUILD"] = "1"
+    idata = system.data
     t0 = time.time()
     oc = ref_outer_circuit(idata, CircuitConfig.recursion_ecc_config())
     print(f"production verifier circuit build: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     odata = ref_data_mod.build_circuit_data(oc)
     print(f"production verifier circuit fixed commit (numpy): {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    W, pis = system.witness(ref_api.random_statements(ref_cn.SECP256K1, 1, seed=REC_OUTER_SEED))
+    iproof = ref_prover.prove(idata, W, pis)
+    print(f"secp256k1 numpy prove B=1 (seed {REC_OUTER_SEED}): {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    vals = oc._run_tape(ref_rv.recursive_verifier_inputs(idata, iproof), 1, None)
+    print(f"production verifier circuit value table B=1 (numpy tape): {time.time() - t0:.1f} s",
+          flush=True)
     return {"recursion_ecc_n": oc.n, "recursion_ecc_rows": gate_rows_used(oc),
             "recursion_ecc_gates": gate_histogram(oc),
             "recursion_ecc_structure_sha256": structure_digest(oc),
-            "recursion_ecc_fixed_cap": _hex(pair_to_u64(odata.fixed_tree.cap))}
+            "recursion_ecc_fixed_cap": _hex(pair_to_u64(odata.fixed_tree.cap)),
+            "recursion_ecc_seed": REC_OUTER_SEED,
+            "recursion_ecc_lane0_table_sha256": value_table_digest(vals)}
 
 
 def port_production_outer(system):
@@ -140,7 +156,7 @@ def make_anchors() -> dict:
         out[f"{name}_lane0_proof_sha256"] = prover.proof_digest(proof, lane=0)
         print(f"{name} numpy prove B=1: {time.time() - t0:.1f} s", flush=True)
         if name == "secp256k1":
-            out.update(reference_production_outer(data))
+            out.update(reference_production_outer(system))
     out.update(reference_demo_recursion())
     return out
 
@@ -164,8 +180,9 @@ def test_anchor_file_is_whole(anchors):
     assert (anchors["recursion_demo_batch"], anchors["recursion_demo_seed"]) == (REC_BATCH, REC_SEED)
     assert len(anchors["recursion_demo_fixed_cap"]) == 4 << 1                       # cap_height 1
     assert len(anchors["recursion_ecc_fixed_cap"]) == 4 << 4
+    assert anchors["recursion_ecc_seed"] == REC_OUTER_SEED
     for name in ("recursion_demo_table_sha256", "recursion_demo_lane0_proof_sha256",
-                 "recursion_ecc_structure_sha256"):
+                 "recursion_ecc_structure_sha256", "recursion_ecc_lane0_table_sha256"):
         assert len(anchors[name]) == 64, name
     assert anchors["recursion_ecc_n"] == 1 << 14
     assert sum(anchors["recursion_ecc_gates"].values()) == 1 << 14
