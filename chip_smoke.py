@@ -796,9 +796,8 @@ def check_stacked_gates(name, circuit, batch, dev, card):
     ops (counts do not depend on the shape)."""
     from plonky2_ecdsa_tpu_torch.circuit.algebra import TorchAlgebra
     from plonky2_ecdsa_tpu_torch.circuit.gates import Gate
-    from plonky2_ecdsa_tpu_torch.profile_stages import quotient_gate_ops
     from plonky2_ecdsa_tpu_torch.prover import prover
-    from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter
+    from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter, quotient_gate_ops
 
     cfg = circuit.config
     section = quotient_gate_ops(circuit.gates, cfg.num_constant_cols, cfg.num_challenges, dev)

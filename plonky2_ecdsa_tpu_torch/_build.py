@@ -35,6 +35,7 @@ _SIGNATURES = {
     "p2_field_check": [_P, _P, _P, _LL, _P],
     "p2_grind": [_P, _P, _I, _I, _LL, _P],
     "ntt_sub": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
+    "trace_stamp": [_P, _I, _P],
 }
 
 

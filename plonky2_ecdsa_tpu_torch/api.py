@@ -9,11 +9,11 @@ tape, prover and verifier.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 
+from . import trace
 from .circuit.builder import CircuitBuilder
 from .circuit.config import CircuitConfig
 from .circuit.foreign import BITS, base_field, scalar_field
@@ -59,8 +59,9 @@ class EcdsaStatement:
 class EcdsaProverSystem:
     """The ECDSA-verify circuit for one curve and config, proved and verified
     on `device`.  Without a config, P-256 takes p256_ecc_config and secp256k1
-    standard_ecc_config.  `build_seconds` is the circuit build's time; with
-    `verbose` it is printed with the row count and n.
+    standard_ecc_config.  `build_seconds` is the circuit build's time (the
+    trace span "setup.circuit_build"); with `verbose` it is printed with the
+    row count and n.
 
     Public inputs, in order: pk.x, pk.y, msg, r, s (45 limbs of 29 bits), so a
     proof binds the statement "signature (r, s) on msg verifies under pk"."""
@@ -69,7 +70,19 @@ class EcdsaProverSystem:
                  config: CircuitConfig | None = None, device="cuda", verbose: bool = False):
         self.curve = curve
         self.device = device
-        t0 = time.time()
+        with trace.span("setup.circuit_build") as build:
+            b = self._builder(curve, config)
+            self.circuit = b.build()
+        self.build_seconds = build.seconds
+        if verbose:
+            print(f"[api] {curve.name} circuit: {len(b.rows)} rows -> n={self.circuit.n} "
+                  f"({self.build_seconds:.1f}s build)")
+        self._data: CircuitData | None = None
+        self._prover: Prover | None = None
+
+    @staticmethod
+    def _builder(curve: cn.CurveParams, config: CircuitConfig | None) -> CircuitBuilder:
+        """The verify circuit's builder, every constraint added."""
         if config is None:
             config = (CircuitConfig.p256_ecc_config() if curve is cn.P256
                       else CircuitConfig.standard_ecc_config())
@@ -95,13 +108,7 @@ class EcdsaProverSystem:
             ge.verify_p256_message_circuit(b, msg, sig, pkt)
         else:
             raise ValueError(f"unsupported curve {curve.name}")
-        self.circuit = b.build()
-        self.build_seconds = time.time() - t0
-        if verbose:
-            print(f"[api] {curve.name} circuit: {len(b.rows)} rows -> n={self.circuit.n} "
-                  f"({self.build_seconds:.1f}s build)")
-        self._data: CircuitData | None = None
-        self._prover: Prover | None = None
+        return b
 
     # ------------------------------------------------------------------ stats
     @property
@@ -148,7 +155,9 @@ class EcdsaProverSystem:
     def witness_vals(self, stmts):
         """The witness as the tape's value table [T, B] u64 (what
         Prover.run_vals takes), and the PIs [B, 45]."""
-        vals = self.circuit.value_table(self._inputs(stmts), len(stmts))
+        with trace.span("witness.inputs"):
+            inputs = self._inputs(stmts)
+        vals = self.circuit.value_table(inputs, len(stmts))
         return vals, self.circuit.public_input_values()
 
     def check(self, stmts) -> bool:

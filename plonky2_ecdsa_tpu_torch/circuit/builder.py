@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import trace
 from ..fields import goldilocks_host as gl
 from .config import CircuitConfig
 from .witness import gadd, gmul, gmul_const
@@ -128,20 +129,22 @@ class Circuit:
     def value_table(self, inputs: dict, batch: int, native: bool = True) -> np.ndarray:
         """The witness tape run on `inputs` (as for generate_witness): the
         value of every target, [num_targets, B] uint64, which is what
-        prover.Prover.run_vals takes.  public_input_values() reads it."""
-        vals =np.zeros((self.num_targets, batch), dtype=np.uint64)
-        for tid, v in self.constant_values.items():
-            vals[tid] = v
-        for name, tids in self.inputs.items():
-            data = np.asarray(inputs[name], dtype=np.uint64)
-            assert data.shape == (batch, len(tids)), (name, data.shape, len(tids))
-            vals[tids] = data.T
-        ev = Evaluator(vals, self.read_map)
-        if native:
-            self._native_tape().run(ev)
-        else:
-            for op in self.tape:
-                op.fn(ev)
+        prover.Prover.run_vals takes.  public_input_values() reads it.  Timed
+        by the trace span "witness.tape"."""
+        with trace.span("witness.tape"):
+            vals = np.zeros((self.num_targets, batch), dtype=np.uint64)
+            for tid, v in self.constant_values.items():
+                vals[tid] = v
+            for name, tids in self.inputs.items():
+                data = np.asarray(inputs[name], dtype=np.uint64)
+                assert data.shape == (batch, len(tids)), (name, data.shape, len(tids))
+                vals[tids] = data.T
+            ev = Evaluator(vals, self.read_map)
+            if native:
+                self._native_tape().run(ev)
+            else:
+                for op in self.tape:
+                    op.fn(ev)
         self.last_tape_native = native
         self._last_vals = vals
         return vals

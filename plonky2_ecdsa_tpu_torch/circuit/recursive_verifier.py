@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from ..fields import goldilocks as gl
 from ..fields import goldilocks_host as glh
 from ..fields.goldilocks_host import P, W_EXT
@@ -599,47 +600,48 @@ def recursive_verifier_inputs(data: CircuitData, proof: Proof, prefix: str = "")
     """Host Proof (B lanes) -> witness-input dict for the circuit built by
     build_recursive_verifier (one outer lane verifies one inner lane;
     `prefix` must match the builder call's)."""
-    from ..prover import fri as fri_mod
+    with trace.span("witness.verifier_inputs"):
+        from ..prover import fri as fri_mod
 
-    cfg = data.circuit.config
-    num_layers, _fs, _nfinal = fri_mod.plan(data.N, cfg)
-    B = proof.pis.shape[0]
+        cfg = data.circuit.config
+        num_layers, _fs, _nfinal = fri_mod.plan(data.N, cfg)
+        B = proof.pis.shape[0]
 
-    def u64(a):
-        return np.asarray(a, np.uint64)
+        def u64(a):
+            return np.asarray(a, np.uint64)
 
-    def cap_flat(cap):
-        a = u64(cap)  # [B, C, 4] (batched)
-        assert a.ndim == 3, a.shape
-        return a.reshape(B, -1)
+        def cap_flat(cap):
+            a = u64(cap)  # [B, C, 4] (batched)
+            assert a.ndim == 3, a.shape
+            return a.reshape(B, -1)
 
-    out = {
-        "pis": proof.pis.astype(np.uint64),
-        "wires_cap": cap_flat(proof.wires_cap),
-        "zs_cap": cap_flat(proof.zs_cap),
-        "quot_cap": cap_flat(proof.quotient_cap),
-        "open0": _interleave(proof.openings0),
-        "open1": _interleave(proof.openings1),
-        "final_coeffs": _interleave(proof.fri_proof.final_coeffs),
-    }
-    fp = proof.fri_proof
-    for l in range(num_layers):
-        out[f"fri_cap{l}"] = cap_flat(fp.caps[l])
-    if cfg.fri.proof_of_work_bits:
-        out["pow_witness"] = u64(fp.pow_witness).reshape(B, 1)
-    leaves = [u64(proof.initial_leaves[name])  # [B, Q, k]
-              for name in ("fixed", "wires", "zs", "quot")]
-    out["init_leaves"] = np.concatenate(leaves, axis=-1).reshape(B, -1)
-    for name in ("fixed", "wires", "zs", "quot"):
-        out[f"init_path_{name}"] = u64(proof.initial_paths[name]).reshape(B, -1)
-    lls = [u64(fp.layer_leaves[l]) for l in range(num_layers)]  # [B, Q, 4]
-    if num_layers:
-        out["layer_leaves"] = np.stack(lls, axis=2).reshape(B, -1)
-    else:
-        out["layer_leaves"] = np.zeros((B, 0), np.uint64)
-    for l in range(num_layers):
-        out[f"layer_path{l}"] = u64(fp.layer_paths[l]).reshape(B, -1)
-    return {prefix + k: v for k, v in out.items()}
+        out = {
+            "pis": proof.pis.astype(np.uint64),
+            "wires_cap": cap_flat(proof.wires_cap),
+            "zs_cap": cap_flat(proof.zs_cap),
+            "quot_cap": cap_flat(proof.quotient_cap),
+            "open0": _interleave(proof.openings0),
+            "open1": _interleave(proof.openings1),
+            "final_coeffs": _interleave(proof.fri_proof.final_coeffs),
+        }
+        fp = proof.fri_proof
+        for l in range(num_layers):
+            out[f"fri_cap{l}"] = cap_flat(fp.caps[l])
+        if cfg.fri.proof_of_work_bits:
+            out["pow_witness"] = u64(fp.pow_witness).reshape(B, 1)
+        leaves = [u64(proof.initial_leaves[name])  # [B, Q, k]
+                  for name in ("fixed", "wires", "zs", "quot")]
+        out["init_leaves"] = np.concatenate(leaves, axis=-1).reshape(B, -1)
+        for name in ("fixed", "wires", "zs", "quot"):
+            out[f"init_path_{name}"] = u64(proof.initial_paths[name]).reshape(B, -1)
+        lls = [u64(fp.layer_leaves[l]) for l in range(num_layers)]  # [B, Q, 4]
+        if num_layers:
+            out["layer_leaves"] = np.stack(lls, axis=2).reshape(B, -1)
+        else:
+            out["layer_leaves"] = np.zeros((B, 0), np.uint64)
+        for l in range(num_layers):
+            out[f"layer_path{l}"] = u64(fp.layer_paths[l]).reshape(B, -1)
+        return {prefix + k: v for k, v in out.items()}
 
 
 # ===========================================================================
@@ -660,9 +662,10 @@ def verifier_circuit(data: CircuitData, config, aggregate: bool = False):
     (build_aggregation_verifier)."""
     from .builder import CircuitBuilder
 
-    b = CircuitBuilder(config)
-    (build_aggregation_verifier if aggregate else build_recursive_verifier)(b, data)
-    return b.build()
+    with trace.span("setup.circuit_build"):
+        b = CircuitBuilder(config)
+        (build_aggregation_verifier if aggregate else build_recursive_verifier)(b, data)
+        return b.build()
 
 
 def build_aggregation_verifier(b, data: CircuitData, fan_in: int = 2):

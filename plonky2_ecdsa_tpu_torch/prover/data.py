@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..circuit.builder import Circuit
 from ..circuit.gates import RangeLookupGate
 from ..fields import goldilocks as gl
@@ -137,7 +138,8 @@ def _slots(circuit: Circuit, lookup):
 
 
 def build_circuit_data(circuit: Circuit, device="cuda") -> CircuitData:
-    """The circuit's fixed data, with its commitment computed on `device`."""
+    """The circuit's fixed data, with its commitment computed on `device`
+    (the trace span "setup.fixed_commit")."""
     device = as_device(device)
     cfg = circuit.config
     n = circuit.n
@@ -145,9 +147,10 @@ def build_circuit_data(circuit: Circuit, device="cuda") -> CircuitData:
     _check_degrees(circuit)
     g = gl.root_of_unity(n)
     lookup = _lookup_info(circuit)
-    fixed_values = fixed_values_of(circuit, lookup)
-    coeffs, lde, tree = _fixed_commit(fixed_values, N, cfg.fri.cap_height, device)
-    ids, x_lde, zh_inv, l0 = _domain_tables(circuit, n, N, g)
+    with trace.span("setup.fixed_commit"):
+        fixed_values = fixed_values_of(circuit, lookup)
+        coeffs, lde, tree = _fixed_commit(fixed_values, N, cfg.fri.cap_height, device)
+        ids, x_lde, zh_inv, l0 = _domain_tables(circuit, n, N, g)
     slots, perm_slots = _slots(circuit, lookup)
     return CircuitData(circuit=circuit, device=device, n=n, N=N, g=g,
                        fixed_values=fixed_values, fixed_coeffs=coeffs, fixed_lde=lde,

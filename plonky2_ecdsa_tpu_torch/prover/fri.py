@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import trace
 from ..fields import goldilocks as gl
 from ..hash import merkle
 from . import ntt
@@ -100,10 +101,12 @@ def fri_prove(challenger, F, N: int, cfg) -> FriProof:
 
     final = tuple(gl.mul(ntt.intt(c), spow)[..., :nfinal] for c in cur)
     challenger.observe_ext_array(final)
+    trace.stamp("fri")
 
     pow_witness = None
     if cfg.fri.proof_of_work_bits:
         pow_witness = challenger.grind(cfg.fri.proof_of_work_bits)
+    trace.stamp("grind")
 
     indices = torch.stack(challenger.get_indices(N, cfg.fri.num_query_rounds), -1)
     layer_leaves, layer_paths = [], []

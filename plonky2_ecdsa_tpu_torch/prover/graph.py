@@ -20,10 +20,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import time
 
 import torch
 
+from .. import trace
 from ..hash import poseidon_cuda
 from . import ntt_cuda
 
@@ -61,31 +61,38 @@ def capture_nodes(stream) -> int:
 
 
 class Captured:
-    """fn() captured as one CUDA graph in memory pool `pool`; `out` is what fn
-    returned (its tensors are the graph's static outputs) and replay() runs
-    the graph again on the current stream.  Every table fn reads from a
-    cache must have been made before (a warm-up run of fn's work).
+    """fn() captured as one CUDA graph named `name` in memory pool `pool`;
+    `out` is what fn returned (its tensors are the graph's static outputs)
+    and replay() runs the graph again on the current stream.  Every table fn
+    reads from a cache must have been made before (a warm-up run of fn's
+    work).
 
-    capture_s is the captured run on the host, instantiate_s the graph's
-    instantiation, nodes its nodes, launches {kernel wrapper: launches per
-    replay}."""
+    capture_s is the captured run on the host (the trace span
+    "capture.<name>"), instantiate_s the graph's instantiation (the span
+    "capture.instantiate" after it), nodes its nodes, launches {kernel
+    wrapper: launches per replay}."""
 
-    def __init__(self, fn, device, pool):
+    def __init__(self, fn, device, pool, name: str):
         before = {k: k.launches for k in KERNELS}
         self.graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local")
         try:
-            t0 = time.perf_counter()
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                self.out = fn()
-                self.nodes = capture_nodes(torch.cuda.current_stream(device))
-                t1 = time.perf_counter()
-            torch.cuda.synchronize(device)
-            self.instantiate_s = time.perf_counter() - t1
+            with trace.span(f"capture.{name}") as captured:
+                capture.__enter__()
+                try:
+                    self.out = fn()
+                    self.nodes = capture_nodes(torch.cuda.current_stream(device))
+                except BaseException as e:
+                    capture.__exit__(type(e), e, e.__traceback__)
+                    raise
+            with trace.span("capture.instantiate") as instantiated:
+                capture.__exit__(None, None, None)
+                torch.cuda.synchronize(device)
         finally:
             self.launches = {k: k.launches - before[k] for k in KERNELS}
             for k in KERNELS:
                 k.launches = before[k]
-        self.capture_s = t1 - t0
+        self.capture_s, self.instantiate_s = captured.seconds, instantiated.seconds
 
     def replay(self):
         self.graph.replay()

@@ -25,13 +25,13 @@ import hashlib
 import math
 import os
 import sys
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..circuit.algebra import TorchAlgebra
 from ..circuit.gates import PublicInputGate
 from ..fields import goldilocks as gl
@@ -385,7 +385,10 @@ def _compute_quotient(data, bk, fr, shard=None):
     """Combined constraints / Z_H over the LDE coset -> [B, C, N]; with a
     shard each rank evaluates its domain slice and the slices are gathered."""
     def eval_chunk(sl):
-        return (_quotient_chunk(data, bk, fr, *_quotient_slices(bk, fr, sl)),)
+        trace.stamp("quotient", start=True)
+        q = _quotient_chunk(data, bk, fr, *_quotient_slices(bk, fr, sl))
+        trace.stamp(f"chunk.{sl.start // DOMAIN_CHUNK}")
+        return (q,)
 
     return _over_domain(eval_chunk, data.N, shard)[0]
 
@@ -474,6 +477,7 @@ def _front(data, bk: Backend, wires, pi, pis, stop_after=None, shard=None):
         wires_coeffs, wires_lde, wires_tree = _lde_commit_sharded(wires, N, caph, shard)
     else:
         wires_coeffs, wires_lde, wires_tree = _lde_commit(wires, N, caph)
+    trace.stamp("commit")
     if stop_after == "commit":
         return wires_tree.cap
     pi_lde = ntt.coset_ntt_from_coeffs(ntt.intt(pi), N)
@@ -490,6 +494,7 @@ def _front(data, bk: Backend, wires, pi, pis, stop_after=None, shard=None):
         gammas.append(ch.get_challenge())
     lk = data.lookup
     lk_alphas = [ch.get_challenge() for _ in range(C)] if lk is not None else []
+    trace.stamp("challenges")
     if stop_after == "challenges":
         return betas, gammas, lk_alphas
 
@@ -512,23 +517,27 @@ def _front(data, bk: Backend, wires, pi, pis, stop_after=None, shard=None):
         for cols in _lookup_polys_all(data, bk, wires, lk_alphas):
             zs_list += cols
     zs_vals = torch.stack(zs_list, 1)
+    trace.stamp("zs_vals")
     if stop_after == "zs_vals":
         return zs_vals
     if shard is not None:
         zs_coeffs, zs_lde, zs_tree = _lde_commit_sharded(zs_vals, N, caph, shard)
     else:
         zs_coeffs, zs_lde, zs_tree = _lde_commit(zs_vals, N, caph)
+    trace.stamp("zs")
     if stop_after == "zs":
         return zs_tree.cap
     ch.observe_cap(zs_tree.cap)
     alphas = [ch.get_challenge() for _ in range(C)]
-    return _Front(
+    fr = _Front(
         ch=ch, wires_coeffs=wires_coeffs, wires_lde=wires_lde, wires_tree=wires_tree,
         pi_lde=pi_lde, betas=betas, gammas=gammas, lk_alphas=lk_alphas,
         num_zs=zs_vals.shape[1], zs_coeffs=zs_coeffs, zs_lde=zs_lde, zs_tree=zs_tree,
         alphas=alphas, apows=[gl.powers(a, data.num_constraint_slots) for a in alphas],
         ids_full=gl.mul(bk.x[None], bk.k_coeffs[:, None]),
         zsh_full=torch.roll(zs_lde[:, bk.z_idx], -(N // n), -1))
+    trace.stamp("alphas")
+    return fr
 
 
 def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=None):
@@ -542,6 +551,7 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
     caph = cfg.fri.cap_height
     ch = fr.ch
     rate = N // n
+    trace.stamp("back", start=True)
     chunks = ntt.coset_intt(quot_vals).reshape(B, C * rate, n)
     quot_lde = ntt.coset_ntt_from_coeffs(chunks, N)
     if shard is not None:
@@ -549,6 +559,7 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
     else:
         quot_tree = merkle.build_merkle_tree_from_polys(quot_lde, caph)
     ch.observe_cap(quot_tree.cap)
+    trace.stamp("quotient")
     if stop_after == "quotient":
         return quot_tree.cap
     zeta = ch.get_ext()
@@ -565,6 +576,7 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
                           ntt.eval_poly_ext(fr.zs_coeffs, zp),
                           ntt.eval_poly_ext(chunks, zp)])
     open_zs_gzeta = ntt.eval_poly_ext(fr.zs_coeffs[:, z_idx], gzp)
+    trace.stamp("openings")
     if stop_after == "openings":
         return openings0
     ch.observe_ext_array(openings0)
@@ -573,7 +585,9 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
     # ---- FRI ----------------------------------------------------------------
     F = _reduced_poly(data, bk, layout, fr.wires_lde, fr.zs_lde, quot_lde, openings0,
                       open_zs_gzeta, zeta, gz, ch.get_ext(), z_idx, shard)
+    trace.stamp("reduced")
     fri_proof = fri.fri_prove(ch, F, N, cfg)
+    trace.stamp("fri_all")
     if stop_after == "fri_all":
         return fri_proof
 
@@ -589,6 +603,7 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
         k = lde.shape[1]
         leaves[name] = torch.gather(lde, 2, idx[:, None, :].expand(B, k, Q)).transpose(1, 2)
         paths[name] = tree.open(idx)
+    trace.stamp("queries")
 
     return Proof(pis=pis, wires_cap=fr.wires_tree.cap, zs_cap=fr.zs_tree.cap,
                  quotient_cap=quot_tree.cap, openings0=openings0,
@@ -606,7 +621,8 @@ def prove_core(data, bk: Backend, wires, pi, pis, stop_after: str | None = None,
     ranks, every other stage runs replicated, and every rank returns the
     single-device proof.  The stages run as _front, the quotient domain
     chunk by domain chunk (_quotient_chunk), and _back: the three parts that
-    a Prover on a CUDA device captures."""
+    a Prover on a CUDA device captures.  Each stage's end is a trace stamp
+    (trace.py), a no-op unless the thread has a stamp buffer."""
     assert stop_after in (None,) + STOP_AFTER, stop_after
     fr = _front(data, bk, wires, pi, pis, stop_after, shard)
     if not isinstance(fr, _Front):
@@ -980,7 +996,12 @@ class Prover:
         vz = np.concatenate([vals, np.zeros((1, B), np.uint64)])
         return vz[self._host_map].reshape(num_wires, n, B)
 
-    def _replay(self, path: str, expand, host_inputs):
+    @property
+    def _graphed(self) -> bool:
+        """Whether dispatches replay captured graphs (a CUDA device, no mesh)."""
+        return self.device.type == "cuda" and self.shard is None
+
+    def _replay(self, path: str, expand, host_inputs, pending):
         """Replay the graphs of (path, B), capturing them first if new."""
         key = (path, host_inputs[0].shape[0])
         captured = self._graphs.get(key)
@@ -988,17 +1009,37 @@ class Prover:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             captured = self._graphs[key] = _CapturedProve(self, expand, host_inputs)
-        return captured(host_inputs)
+        return captured(host_inputs, pending)
+
+    def _eager(self, host_inputs, expand, pending) -> Proof:
+        """prove_core run now (the CPU, a mesh rank), its stamps on the host
+        clock."""
+        stamps = None
+        if pending is not None:
+            stamps = trace.StampBuffer("cpu")
+            pending.stamps_from(stamps)
+        with trace.stamping(stamps):
+            with trace.span("prove.load"):
+                trace.stamp("upload", start=True)
+                inputs = [torch.from_numpy(a).to(self.device) for a in host_inputs]
+                trace.stamp("upload")
+            with trace.span("prove.launch"):
+                wires, pi, pis_dev = _expand_stamped(expand, inputs)
+                return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard)
 
     def dispatch(self, W: np.ndarray, pis: np.ndarray):
         """Enqueue the prove of a full witness W [num_wires, n, B] u64;
         returns a handle for collect()."""
-        if self.device.type == "cuda" and self.shard is None:
-            wires, pi_vals = host_prep(self.data, W, pis)
-            host = [np.asarray(a, np.uint64).view(np.int64) for a in (wires, pi_vals, pis)]
-            return self._replay("wide", lambda *t: t, host), pis
-        wires, pi, pis_dev = _inputs_to_device(self.data, W, pis)
-        return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
+        with trace.dispatching("wide", W.shape[-1]) as pending:
+            return self._dispatch_wide(W, pis, pending)
+
+    def _dispatch_wide(self, W: np.ndarray, pis: np.ndarray, pending):
+        with trace.span("prove.split"):
+            host = [np.ascontiguousarray(a, np.uint64).view(np.int64)
+                    for a in (*host_prep(self.data, W, pis), pis)]
+        if self._graphed:
+            return self._replay("wide", lambda *t: t, host, pending), pis, pending
+        return self._eager(host, lambda *t: t, pending), pis, pending
 
     def dispatch_vals(self, vals: np.ndarray, pis: np.ndarray):
         """Enqueue the prove of a value table; returns a handle for collect().
@@ -1007,33 +1048,51 @@ class Prover:
         and the table is expanded on the host and proved through the
         full-witness path, on the same device with the same kernels (slower:
         the whole wire tensor goes up)."""
-        try:
-            vn, vw = self._vals_split(vals)
-        except NarrowMisclassification as e:
-            print(f"[prover] WARNING: {e}; falling back to the wide witness "
-                  "path for this batch", file=sys.stderr)
-            return self.dispatch(self._expand_host(vals), pis)
-        vn, vw = vn.view(np.int32), vw.view(np.int64)
-        if self.device.type == "cuda" and self.shard is None:
-            return self._replay("vals", self._expand, (vn, vw)), pis
-        wires, pi, pis_dev = self._expand(torch.from_numpy(vn).to(self.device),
-                                          torch.from_numpy(vw).to(self.device))
-        return prove_core(self.data, self.backend, wires, pi, pis_dev, shard=self.shard), pis
+        with trace.dispatching("vals", vals.shape[1]) as pending:
+            try:
+                with trace.span("prove.split"):
+                    vn, vw = self._vals_split(vals)
+            except NarrowMisclassification as e:
+                print(f"[prover] WARNING: {e}; falling back to the wide witness "
+                      "path for this batch", file=sys.stderr)
+                if pending is not None:
+                    pending.path = "wide"
+                return self._dispatch_wide(self._expand_host(vals), pis, pending)
+            host = (vn.view(np.int32), vw.view(np.int64))
+            if self._graphed:
+                return self._replay("vals", self._expand, host, pending), pis, pending
+            return self._eager(host, self._expand, pending), pis, pending
 
     def collect(self, handle) -> Proof:
         """The host Proof of a dispatched batch (waits for it)."""
-        ticket, pis = handle
-        if isinstance(ticket, Proof):
-            proof = to_host(ticket, pis)
-        else:
-            host, done, spec = ticket
-            done.synchronize()
-            proof = _unpack_proof(host.numpy(), spec, pis)
-        check_grind(proof)
+        ticket, pis, pending = handle
+        with trace.collecting(pending):
+            if isinstance(ticket, Proof):
+                with trace.stamping(None if pending is None else pending.buffer):
+                    trace.stamp("readback", start=True)
+                    buf = _pack_proof(ticket).cpu().numpy()
+                    trace.stamp("readback")
+                spec = _pack_spec(ticket)
+            else:
+                host, done, spec = ticket
+                with trace.span("prove.wait"):
+                    done.synchronize()
+                buf = host.numpy()
+            with trace.span("prove.unpack"):
+                proof = _unpack_proof(buf, spec, pis)
+                check_grind(proof)
         return proof
 
     def run_vals(self, vals: np.ndarray, pis: np.ndarray) -> Proof:
         return self.collect(self.dispatch_vals(vals, pis))
+
+
+def _expand_stamped(expand, inputs):
+    """The front part's first stage: the device expand of the uploaded inputs."""
+    trace.stamp("front", start=True)
+    out = expand(*inputs)
+    trace.stamp("expand")
+    return out
 
 
 class _CapturedProve:
@@ -1049,7 +1108,15 @@ class _CapturedProve:
     because a graph's host memory grows with its nodes: the recursion's outer
     proof as one graph is 1 084 831 nodes and grew the process by 8.3 GB,
     where these three hold 266 417 nodes and grew it by 1.0 GB (H100 80GB
-    HBM3 host, PyTorch 2.11, CUDA 12.8; profile_stages --whole-graph)."""
+    HBM3 host, PyTorch 2.11, CUDA 12.8).
+
+    With tracing on at capture, the stamps of the front and back graphs are
+    kernel nodes writing fixed slots of `stamps` (trace.StampBuffer); the
+    upload, each domain chunk (copies and replay) and the readback get eager
+    stamps of their own slots, and each batch copies the slots to pinned host
+    memory after its readback, in stream order, so the next batch's stamps
+    land after it.  The buffer's clock is calibrated once, after the
+    captures."""
 
     def __init__(self, run: Prover, expand, host_inputs):
         data, bk, dev = run.data, run.backend, run.device
@@ -1062,74 +1129,112 @@ class _CapturedProve:
         # kernels' round constants), which a capture must only read
         here, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
         side.wait_stream(here)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            prove_core(data, bk, *expand(*self.inputs))
-        here.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t0
+        with trace.span("capture.warmup") as warmup:
+            with torch.cuda.stream(side):
+                prove_core(data, bk, *expand(*self.inputs))
+            here.wait_stream(side)
+            torch.cuda.synchronize(dev)
+        self.warmup_s = warmup.seconds
         rss = graph.rss_bytes()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
+        self.stamps = st = trace.StampBuffer(dev) if trace.enabled() else None
         ins = {}
 
         def front():
-            ins["wires"], ins["pi"], ins["pis"] = expand(*self.inputs)
+            ins["wires"], ins["pi"], ins["pis"] = _expand_stamped(expand, self.inputs)
             return _front(data, bk, ins["wires"], ins["pi"], ins["pis"])
 
-        self.front = graph.Captured(front, dev, run._pool)
-        fr = self.front.out
-        self.domain = _chunks(data.N)
-        self.slices = [_quotient_slices(bk, fr, sl) for sl in self.domain]
-        self.bufs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in self.slices[0]]
-        self.chunk = graph.Captured(lambda: _quotient_chunk(data, bk, fr, *self.bufs), dev,
-                                    run._pool)
-        B, C = self.chunk.out.shape[:2]
-        self.quot_vals = torch.empty((B, C, data.N), dtype=torch.int64, device=dev)
+        with trace.stamping(st):
+            self.front = graph.Captured(front, dev, run._pool, "front")
+            fr = self.front.out
+            self.domain = _chunks(data.N)
+            self.slices = [_quotient_slices(bk, fr, sl) for sl in self.domain]
+            self.bufs = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in self.slices[0]]
+            self.chunk = graph.Captured(lambda: _quotient_chunk(data, bk, fr, *self.bufs), dev,
+                                        run._pool, "chunk")
+            B, C = self.chunk.out.shape[:2]
+            self.quot_vals = torch.empty((B, C, data.N), dtype=torch.int64, device=dev)
+            captured = len(st.names) if st is not None else 0
 
-        def back():
-            proof = _back(data, bk, fr, self.quot_vals, ins["pis"])
-            return _pack_proof(proof), _pack_spec(proof)
+            def back():
+                proof = _back(data, bk, fr, self.quot_vals, ins["pis"])
+                packed = _pack_proof(proof)
+                trace.stamp("pack")
+                return packed, _pack_spec(proof)
 
-        self.back = graph.Captured(back, dev, run._pool)
+            self.back = graph.Captured(back, dev, run._pool, "back")
         self.out, self.spec = self.back.out
         self.host_bytes = graph.rss_bytes() - rss
         self.device_bytes = torch.cuda.memory_reserved(dev) - reserved
+        # the eager stamps' slots (None: no stamps)
+        self.upload = self.readback = (None, None)
+        self.chunk_stamps = [(None, None)] * len(self.domain)
+        if st is not None:
+            graphs = list(range(len(st.names)))
+            self.upload = (st.add("upload", True), st.add("upload"))
+            self.chunk_stamps = [(st.add("quotient", True),
+                                  st.add(f"chunk.{sl.start // DOMAIN_CHUNK}"))
+                                 for sl in self.domain]
+            self.readback = (st.add("readback", True), st.add("readback"))
+            self.order = [*self.upload, *graphs[:captured],
+                          *(s for pair in self.chunk_stamps for s in pair),
+                          *graphs[captured:], *self.readback]
+            st.calibrate()
 
-    def _load(self, host_inputs):
+    def _load(self, host_inputs, mark=lambda i: None):
         """Copy the inputs (numpy) into the static buffers, staged through
-        pinned memory so that the copies queue behind the stream's work."""
+        pinned memory so that the copies queue behind the stream's work;
+        mark(0) and mark(1) come before and after the copies are queued."""
+        pinned = []
         for buf, a in zip(self.inputs, host_inputs):
             if tuple(buf.shape) != a.shape:
                 raise ValueError(f"captured for {tuple(buf.shape)}, given {a.shape}")
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(a)).pin_memory(), non_blocking=True)
+            pinned.append(torch.from_numpy(np.ascontiguousarray(a)).pin_memory())
+        mark(0)
+        for buf, p in zip(self.inputs, pinned):
+            buf.copy_(p, non_blocking=True)
+        mark(1)
 
-    def __call__(self, host_inputs):
+    def __call__(self, host_inputs, pending):
         """Queue one batch on the current stream -> (pinned host buffer, event
         after its copy, spec).  The next batch's replays write the packed
-        buffer only after this copy, which the same stream runs first."""
-        self._load(host_inputs)
-        self.front.replay()
-        for sl, views in zip(self.domain, self.slices):
-            for buf, v in zip(self.bufs, views):
-                buf.copy_(v)
-            self.chunk.replay()
-            self.quot_vals[..., sl].copy_(self.chunk.out)
-        self.back.replay()
-        host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
-        host.copy_(self.out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        buffer only after this copy, which the same stream runs first.  With
+        a pending record (tracing on) the stamps are written and copied too."""
+        st = self.stamps if pending is not None else None
+        write = st.write if st is not None else (lambda slot: None)
+        with trace.span("prove.load"):
+            self._load(host_inputs, lambda i: write(self.upload[i]))
+        with trace.span("prove.launch"):
+            self.front.replay()
+            for sl, views, (begin, end) in zip(self.domain, self.slices, self.chunk_stamps):
+                write(begin)
+                for buf, v in zip(self.bufs, views):
+                    buf.copy_(v)
+                self.chunk.replay()
+                self.quot_vals[..., sl].copy_(self.chunk.out)
+                write(end)
+            self.back.replay()
+            host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
+            write(self.readback[0])
+            host.copy_(self.out, non_blocking=True)
+            write(self.readback[1])
+            if st is not None:
+                times = torch.empty(len(st.names), dtype=torch.int64, pin_memory=True)
+                times.copy_(st.slots[:len(st.names)], non_blocking=True)
+                pending.stamps_from(st, self.order, times)
+            done = torch.cuda.Event()
+            done.record()
         return host, done, self.spec
 
     def stats(self) -> dict:
         """Set-up figures: seconds of the warm-up, of the captures on the host
-        and of the instantiations; each graph's nodes and the nodes a batch
-        runs; the growth of the process's resident memory over the captures
-        (a lower bound of the graphs' host memory: they reuse what the
-        warm-up freed); the device memory the captures reserved (the pool,
-        the chunk buffers and the quotient's values); kernel launches a
-        batch."""
+        and of the instantiations (their trace spans); each graph's nodes and
+        the nodes a batch runs; the growth of the process's resident memory
+        over the captures (a lower bound of the graphs' host memory: they
+        reuse what the warm-up freed); the device memory the captures
+        reserved (the pool, the chunk buffers and the quotient's values);
+        kernel launches a batch."""
         parts = {"front": self.front, "chunk": self.chunk, "back": self.back}
         reps = {"front": 1, "chunk": len(self.domain), "back": 1}
         launches = {k.__name__: sum(reps[p] * g.launches[k] for p, g in parts.items())

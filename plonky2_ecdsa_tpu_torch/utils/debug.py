@@ -22,7 +22,8 @@ circuit) passes here and fails ``circuit.witness.check_constraints``.
 two builds (two packages, two machines) can be compared by one value;
 ``value_table_digest`` does the same for a witness tape's value table, and
 ``gate_histogram`` / ``gate_rows_used`` count a circuit's rows by gate.
-``EagerOpCounter`` counts the torch ops a stretch of code dispatches.
+``EagerOpCounter`` counts the torch ops a stretch of code dispatches, and
+``quotient_gate_ops`` those of the quotient's gate section a domain chunk.
 """
 
 from __future__ import annotations
@@ -175,3 +176,28 @@ class EagerOpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.count += 1
         return func(*args, **(kwargs or {}))
+
+
+def quotient_gate_ops(gates, num_consts: int, challenges: int, device="cpu") -> int:
+    """Eager torch ops that the quotient's gate section
+    (``prover._add_gate_constraints``) issues for one domain chunk of a
+    circuit with these gates, counted on random inputs [B=2, 8 points]: the
+    count does not depend on the chunk's shape.  A first, uncounted pass
+    makes the gates' cached constants."""
+    from ..prover import prover
+
+    rng = np.random.default_rng(0)
+
+    def field(*shape):
+        return gl.from_u64(rng.integers(0, gl.P, shape, dtype=np.uint64), device)
+
+    B, m = 2, 8
+    w = field(B, max(g.num_wires for g in gates), m)
+    fixed = field(num_consts + len(gates), m)
+    pic = field(B, max(getattr(g, "num_cols", 1) for g in gates), m)
+    apows = [field(B, max(g.num_constraints for g in gates)) for _ in range(challenges)]
+    comb = [field(B, m) for _ in range(challenges)]
+    prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+    with EagerOpCounter() as counter:
+        prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+    return counter.count

@@ -19,10 +19,9 @@ from plonky2_ecdsa_tpu_torch.circuit import foreign, gates, poseidon_gate
 from plonky2_ecdsa_tpu_torch.circuit.algebra import TorchAlgebra
 from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_demo_witness
 from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
-from plonky2_ecdsa_tpu_torch.profile_stages import quotient_gate_ops
 from plonky2_ecdsa_tpu_torch.prover import prover, verifier
 from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter
+from plonky2_ecdsa_tpu_torch.utils.debug import EagerOpCounter, quotient_gate_ops
 from test_torch_bridge import pair_to_u64, u64_to_pair
 
 P = gl.P

@@ -29,6 +29,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from plonky2_ecdsa_tpu.circuit import examples as ref_examples
 from plonky2_ecdsa_tpu.prover import data as ref_data_mod
 from plonky2_ecdsa_tpu.prover import prover as ref_prover
+from plonky2_ecdsa_tpu_torch import trace
 from plonky2_ecdsa_tpu_torch.api import int_to_limbs
 from plonky2_ecdsa_tpu_torch.circuit import gates
 from plonky2_ecdsa_tpu_torch.circuit.examples import (nonnative_mul_chain_circuit,
@@ -200,17 +201,20 @@ def references():
 def _graph_body(run, expand, inputs):
     """What a Prover's graphs run (prover._CapturedProve), on the CPU: the
     expand and _front ("front"), _quotient_chunk on contiguous chunk buffers
-    ("chunk", per domain chunk), _back and the pack ("back")."""
+    ("chunk", per domain chunk), _back and the pack ("back"), with the
+    graphs' trace stamps."""
     data, bk = run.data, run.backend
 
     def body():
-        wires, pi, pis = expand(*inputs)
+        wires, pi, pis = prover._expand_stamped(expand, inputs)
         fr = prover._front(data, bk, wires, pi, pis)
         quot = [prover._quotient_chunk(data, bk, fr, *(v.contiguous() for v in
                                                       prover._quotient_slices(bk, fr, sl)))
                 for sl in prover._chunks(data.N)]
         proof = prover._back(data, bk, fr, torch.cat(quot, -1), pis)
-        return prover._pack_proof(proof), prover._pack_spec(proof)
+        packed = prover._pack_proof(proof)
+        trace.stamp("pack")
+        return packed, prover._pack_spec(proof)
 
     body.whole = lambda: prover._pack_proof(prover.prove_core(data, bk, *expand(*inputs)))
     return body
