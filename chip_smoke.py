@@ -14,7 +14,9 @@ From the repository root, on a machine with one CUDA device:
      proof, times both, and works out the least time the card could take for
      the same work (its bound: the bytes, or the integer operations the
      arithmetic needs whatever the code) and, beside it, the issue slots that
-     this code's own instruction count fills;
+     this code's own instruction count fills; the quotient's field kernels
+     (csrc/field.cu: mul, add, sub, the weighted sum dot_mod) likewise, on
+     the operands of a B=32 domain chunk and of one outer B=8 operation;
   3. proves the small demo circuit (B=2) on the card and checks the proof
      leaf for leaf against the port's own proof on the CPU (plain kernels),
      and its digest against the value frozen from the reference; then the
@@ -252,7 +254,7 @@ def sass_instruction_counts() -> dict:
     sass = subprocess.run([dump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
     os.remove(cubin)
     names = ("permute_unrolled", "grind_candidate", "probe_base", "probe_mul", "probe_mul_lazy",
-             "probe_butterfly")
+             "probe_butterfly", "probe_add", "probe_sub", "probe_sum2", "probe_sum3")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -574,6 +576,57 @@ def check_kernels(dev, card, sass):
     print(f"sub_ntt four-step coset LDE 2^14->2^17 (pre) [{REC_BATCH}, {OUTER_WIRES}] (the outer "
           f"wires LDE, {o1} x {o2}): max_abs_err={err} (tolerance 0), kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, {bounds}  ({card.line})")
+
+    # the quotient's field kernels (csrc/field.cu) on operands of one flat
+    # B=32 domain chunk, as the quotient hands them (strided views, broadcast
+    # challenges), and one outer B=8 operation (PoseidonGate's [B, m] form)
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks_cuda as glc
+
+    rng_q = np.random.default_rng(SEED + 3)
+    m = 1 << 14
+    w = random_field(rng_q, (BATCH, 128, m), dev)                     # a wires chunk
+    warr = w.movedim(1, 0)                                            # the gates' view
+    beta = random_field(rng_q, (BATCH, 1, 1), dev)
+    cons = random_field(rng_q, (120, BATCH, m), dev)                  # a gate's constraints
+    alphas = random_field(rng_q, (BATCH, 160), dev)[:, 40:].t()[..., None]   # [120, B, 1]
+    outer = random_field(rng_q, (2, REC_BATCH, m), dev)
+    per_lazy = sass["probe_mul_lazy"] - sass["probe_base"]
+    per_add = sass["probe_add"] - sass["probe_base"]
+    per_sub = sass["probe_sub"] - sass["probe_base"]
+    per_add96 = sass["probe_sum3"] - sass["probe_sum2"]
+    print(f"SASS instructions this code executes per thread: one canonical add {per_add}, one "
+          f"canonical subtract {per_sub}, one 96-bit add of a word (a reduction's step, with "
+          f"the lazy multiply {per_lazy} in a weighted one) {per_add96}  ({card.line})")
+    n_mul, n_add, n_dot = BATCH * 80 * m, BATCH * m, 120 * BATCH * m
+    # (name, wrapper, operands, kernel, plain, words read and written, needed
+    # operations, this code's operations by the SASS probes, what)
+    cases = [
+        ("field_mul", glc.mul, (w[:, :80], beta), glc.mul, gl.mul, 2 * n_mul + BATCH,
+         n_mul * MUL_OPS, n_mul * per_mul,
+         "[32, 80, 2^14] strided view x [32, 1, 1] (the permutation's beta terms)"),
+        ("field_add", glc.add, (w[:, 0], w[:, 1]), glc.add, gl.add, 3 * n_add,
+         n_add * ADD_OPS, n_add * per_add, "two strided [32, 2^14] rows of the wires chunk"),
+        ("field_sub", glc.sub, (warr[:40], warr[40:80]), glc.sub, gl.sub, 3 * 40 * n_add,
+         40 * n_add * ADD_OPS, 40 * n_add * per_sub, "two [40, 32, 2^14] views of warr"),
+        ("field_dot_mod", glc.dot_mod, (cons, alphas),
+         lambda x, y: glc.dot_mod(x, y, 0), lambda x, y: gl.sum_mod(gl.mul(x, y), 0),
+         n_dot + 120 * BATCH + n_add, n_dot * (MUL_OPS + ADD_OPS), n_dot * (per_lazy + per_add96),
+         "[120, 32, 2^14] constraints against their [120, 32, 1] alpha powers -> [32, 2^14]"),
+        ("field_mul_outer", glc.mul, (outer[0], outer[1]), glc.mul, gl.mul, 3 * REC_BATCH * m,
+         REC_BATCH * m * MUL_OPS, REC_BATCH * m * per_mul,
+         "[8, 2^14] x [8, 2^14] (one PoseidonGate operation of the outer proof)"),
+    ]
+    for name, fn, args, kernel, plain, words, ops, instrs, what in cases:
+        err = max_abs_err(kernel(*args), plain(*args))
+        assert err == 0.0, f"{name} disagrees with the plain version"
+        ms = cuda_ms(lambda: kernel(*args), 50)
+        plain_ms = cuda_ms(lambda: plain(*args), 5)
+        bounds = row(name, "plonky2_ecdsa_tpu_torch/csrc/field.cu",
+                     "none (the reference's quotient, plonky2_ecdsa_tpu/prover/prover.py:1165, "
+                     "is XLA-fused jnp)", fn, err, ms, plain_ms, 8 * words, ops, instrs)
+        print(f"{name} {what}: max_abs_err={err} (tolerance 0), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, {bounds}  ({card.line})")
     return rows
 
 
@@ -721,7 +774,7 @@ def graph_tables(system, vals, pis, name):
                             for seed in GRAPH_SEEDS[name][1:]]
 
 
-def check_graph_prover(name, run, tables, rows, card, anchor=None):
+def check_graph_prover(name, run, tables, card, anchor=None):
     """The compiled prover against eager prove_core on three witnesses of
     one batch size (GRAPH_SEEDS): each one's eager prove_core + to_host,
     with its kernel launches; then the three through the Prover's graphs
@@ -732,14 +785,14 @@ def check_graph_prover(name, run, tables, rows, card, anchor=None):
     (counted at capture) equal the eager launches, and the replays launch
     nothing eagerly.  Prints the graphs' set-up figures, with the device
     memory their captures reserved, then releases the graphs."""
-    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+    from plonky2_ecdsa_tpu_torch.prover import graph, prover, verifier
 
     data, batch = run.data, tables[0][0].shape[1]
-    kernels = list({r["fn"].__name__: r["fn"] for r in rows}.values())
+    kernels = graph.KERNELS                      # every kernel the graphs count
     assert ("vals", batch) in run.graph_stats, "the graph phase replays a captured path"
     eager, eager_s, eager_launches = [], [], None
     for vals, pis in tables:
-        zero_counts(rows)
+        zero_counts([dict(fn=fn) for fn in kernels])
         t0 = time.time()
         vn, vw = run._vals_split(vals)
         inputs = run._expand(torch.from_numpy(vn.view(np.int32)).to(data.device),
@@ -750,7 +803,7 @@ def check_graph_prover(name, run, tables, rows, card, anchor=None):
         assert eager_launches in (None, launches), "eager launches differ between witnesses"
         eager_launches = launches
         del inputs
-    zero_counts(rows)
+    zero_counts([dict(fn=fn) for fn in kernels])
     t0 = time.time()
     pending, proofs = None, []
     for vals, pis in tables:
@@ -1180,7 +1233,7 @@ def production_recursion(system, dev, card, rows, anchors):
     for other in inner[1:]:
         tables.append((oc.value_table(rv.recursive_verifier_inputs(idata, other), REC_BATCH),
                        oc.public_input_values()))
-    check_graph_prover("recursion", run, tables, rows, card)
+    check_graph_prover("recursion", run, tables, card)
     del tables
     check_stacked_gates("recursion", oc, REC_BATCH, dev, card)
 
@@ -1310,6 +1363,7 @@ def mesh_rank(rank, phase, tmp):
 
     import torch.distributed as dist
 
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks_cuda
     from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
     from plonky2_ecdsa_tpu_torch.parallel import mesh
     from plonky2_ecdsa_tpu_torch.prover import ntt_cuda, prover, serialize
@@ -1331,7 +1385,8 @@ def mesh_rank(rank, phase, tmp):
         with np.load(os.path.join(tmp, f"{circuit}_inputs.npz")) as z:
             inputs = {k: z[k] for k in z.files}
         kernels = (poseidon_cuda.permute, poseidon_cuda.sponge, poseidon_cuda.grind,
-                   ntt_cuda.sub_ntt)
+                   ntt_cuda.sub_ntt, goldilocks_cuda.add, goldilocks_cuda.sub,
+                   goldilocks_cuda.mul, goldilocks_cuda.dot_mod)
         for name, dcn, dp, col in grids:
             m = (mesh.prover_mesh(col_parallel=col) if dcn is None
                  else mesh.prover_mesh_2level(dcn, dp * col, col_parallel=col))
@@ -1481,7 +1536,7 @@ def main() -> int:
     check_demo_recursion(dev, card, anchors)
     system, vals, pis, proof = main_path("secp256k1", dev, card, rows, anchors)
     check_graph_prover("secp256k1", system.prover, graph_tables(system, vals, pis, "secp256k1"),
-                       rows, card, anchors["secp256k1_lane0_proof_sha256"])
+                       card, anchors["secp256k1_lane0_proof_sha256"])
     check_stacked_gates("secp256k1", system.circuit, BATCH, dev, card)
     check_sanitizer_and_limbs(system, vals, pis, dev, card)
     check_mesh(system, vals, pis, proof, dev, card, rows, anchors)
@@ -1491,7 +1546,7 @@ def main() -> int:
     production_recursion(system, dev, card, rows, anchors)
     del system
     system, vals, pis, _proof = main_path("p256", dev, card, rows, anchors)
-    check_graph_prover("p256", system.prover, graph_tables(system, vals, pis, "p256"), rows, card,
+    check_graph_prover("p256", system.prover, graph_tables(system, vals, pis, "p256"), card,
                        anchors["p256_lane0_proof_sha256"])
     check_stacked_gates("p256", system.circuit, BATCH, dev, card)
     del system, vals, pis, _proof

@@ -27,7 +27,8 @@ BUILD = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "p2_set_constants": [_P, _P],
     "p2_permute": [_P, _P, _LL, _P],
@@ -36,6 +37,8 @@ _SIGNATURES = {
     "p2_grind": [_P, _P, _I, _I, _LL, _P],
     "ntt_sub": [_P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
     "trace_stamp": [_P, _I, _P],
+    "gl_binary": [_I, _P, _LLP, _ULL, _P, _LLP, _ULL, _P, _LLP, _I, _P],
+    "gl_reduce": [_P, _LLP, _P, _LLP, _LL, _P, _LLP, _I, _P],
 }
 
 

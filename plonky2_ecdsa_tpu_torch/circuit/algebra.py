@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..fields import goldilocks as gl
+from ..fields import goldilocks_cuda as glc
 from ..fields import goldilocks_host as glh
 
 
@@ -52,7 +53,12 @@ class BaseAlgebra:
 
 
 class TorchAlgebra:
-    """Elements are int64 tensors broadcastable to `shape`."""
+    """Elements are int64 tensors broadcastable to `shape`; the field
+    operations are ``fields/goldilocks_cuda``'s (one kernel each on a CUDA
+    device, ``fields/goldilocks``'s plain functions on the CPU).  ``add``,
+    ``sub`` and ``mul`` also take a Python int as either operand (as
+    ``goldilocks_cuda`` does); ``sum_mod`` and ``dot_mod`` reduce one axis of
+    a stacked tensor."""
 
     ext = False
 
@@ -70,22 +76,30 @@ class TorchAlgebra:
         return self.const(1)
 
     def add(self, a, b):
-        return gl.add(a, b)
+        return glc.add(a, b)
 
     def sub(self, a, b):
-        return gl.sub(a, b)
+        return glc.sub(a, b)
 
     def neg(self, a):
-        return gl.neg(a)
+        return glc.neg(a)
 
     def mul(self, a, b):
-        return gl.mul(a, b)
+        return glc.mul(a, b)
 
     def mul_const(self, a, c: int):
-        return gl.mul(a, c % gl.P)
+        return glc.mul(a, c % gl.P)
 
     def add_const(self, a, c: int):
-        return gl.add(a, gl.i64(c))
+        return glc.add(a, gl.i64(c))
+
+    def sum_mod(self, x, dim: int):
+        """The sum over axis `dim`."""
+        return glc.sum_mod(x, dim)
+
+    def dot_mod(self, x, w, dim: int):
+        """The sum over axis `dim` of x * w (broadcast together)."""
+        return glc.dot_mod(x, w, dim)
 
 
 class TorchExtAlgebra:

@@ -63,14 +63,14 @@ def _flatten_blocks(parts):
     return block.reshape((-1,) + block.shape[2:])
 
 
-def _bool_cons(x):
+def _bool_cons(alg, x):
     """x (x - 1): zero iff x is 0 or 1."""
-    return gl.mul(x, gl.sub(x, 1))
+    return alg.mul(x, alg.sub(x, 1))
 
 
-def _tri_cons(x):
+def _tri_cons(alg, x):
     """x (x - 1) (x - 2): zero iff x is 0, 1 or 2."""
-    return gl.mul(_bool_cons(x), gl.sub(x, 2))
+    return alg.mul(_bool_cons(alg, x), alg.sub(x, 2))
 
 
 def _carry_chain_tail(cur, dim: int):
@@ -80,24 +80,24 @@ def _carry_chain_tail(cur, dim: int):
     return F.pad(cur, after + (1, 0)), F.pad(cur, after + (0, 1))
 
 
-def _nnaddsub_eval_stacked_op(gate, warr, is_sub: bool):
+def _nnaddsub_eval_stacked_op(gate, alg, warr, is_sub: bool):
     """NonNativeAdd/SubGate: every op window at once -> [ops * (2N), *S],
     per op the N limb constraints, ovf boolean, the N - 1 carries in {0,1,2}."""
     N = gate.N
     x = warr.reshape((gate.num_ops, gate.OP_WIDTH) + warr.shape[1:])
     a, b, s = x[:, :N], x[:, N:2 * N], x[:, 2 * N:3 * N]
     ovf, c = x[:, 3 * N:3 * N + 1], x[:, 3 * N + 1:]
-    ovm = gl.mul(ovf, _const_col(tuple(gate.ff.limbs29), warr.ndim - 1, warr.device))
+    ovm = alg.mul(ovf, _const_col(tuple(gate.ff.limbs29), warr.ndim - 1, warr.device))
     if is_sub:
-        acc = gl.sub(gl.add(gl.sub(a, b), ovm), s)
+        acc = alg.sub(alg.add(alg.sub(a, b), ovm), s)
     else:
-        acc = gl.sub(gl.sub(gl.add(a, b), s), ovm)
-    prev, cur = _carry_chain_tail(gl.sub(c, 1), 1)         # carries in {-1, 0, 1}
-    acc = gl.sub(gl.add(acc, prev), gl.mul(cur, 1 << BITS))
-    return _flatten_blocks([acc, _bool_cons(ovf), _tri_cons(c)])
+        acc = alg.sub(alg.sub(alg.add(a, b), s), ovm)
+    prev, cur = _carry_chain_tail(alg.sub(c, 1), 1)         # carries in {-1, 0, 1}
+    acc = alg.sub(alg.add(acc, prev), alg.mul(cur, 1 << BITS))
+    return _flatten_blocks([acc, _bool_cons(alg, ovf), _tri_cons(alg, c)])
 
 
-def _bigcmp_eval_stacked_op(gate, warr):
+def _bigcmp_eval_stacked_op(gate, alg, warr):
     """BigCmpGate: every op window at once -> [ops * (2N + 1), *S], per op
     the N borrow-chain limbs, the N borrows boolean, le + brw_{N-1} = 1."""
     N = gate.N
@@ -105,19 +105,19 @@ def _bigcmp_eval_stacked_op(gate, warr):
     a, b, le = x[:, :N], x[:, N:2 * N], x[:, 2 * N:2 * N + 1]
     d, brw = x[:, 2 * N + 1:3 * N + 1], x[:, 3 * N + 1:]
     prev = _carry_chain_tail(brw[:, :N - 1], 1)[0]
-    acc = gl.sub(gl.sub(gl.sub(b, a), prev), d)
-    acc = gl.add(acc, gl.mul(brw, 1 << BITS))
-    fin = gl.sub(gl.add(le, brw[:, N - 1:]), 1)
-    return _flatten_blocks([acc, _bool_cons(brw), fin])
+    acc = alg.sub(alg.sub(alg.sub(b, a), prev), d)
+    acc = alg.add(acc, alg.mul(brw, 1 << BITS))
+    fin = alg.sub(alg.add(le, brw[:, N - 1:]), 1)
+    return _flatten_blocks([acc, _bool_cons(alg, brw), fin])
 
 
-def _randacc_interp_stacked(items, bits, nb: int, dim: int):
+def _randacc_interp_stacked(alg, items, bits, nb: int, dim: int):
     """Iterated interpolation over the item axis `dim`: pairs (2i, 2i + 1)
     joined by bit j at step j, for j < nb; bits' axis `dim` holds the bits.
     items [..., 2^nb, *S] -> [..., *S]."""
     for j in range(nb):
         ev, od = items.unflatten(dim, (-1, 2)).unbind(dim + 1)
-        items = gl.add(ev, gl.mul(bits.narrow(dim, j, 1), gl.sub(od, ev)))
+        items = alg.add(ev, alg.mul(bits.narrow(dim, j, 1), alg.sub(od, ev)))
     return items.squeeze(dim)
 
 
@@ -156,7 +156,9 @@ class Gate:
         and `ctx["pi_vals"]` the PI columns, each of alg.shape's rank and
         broadcastable to it (the quotient's constants are [1, m]).  This
         default stacks `eval`'s list; subclasses that the prover meets often
-        compute the same values as a few ops on stacked tensors."""
+        compute the same values as a few ops on stacked tensors.  Either way
+        the field arithmetic goes through `alg` (on a CUDA device one kernel
+        an operation, fields/goldilocks_cuda.py)."""
         cons = self.eval(alg, warr.unbind(0), consts, ctx)
         return torch.stack([v.expand(alg.shape) for v in cons])
 
@@ -216,7 +218,7 @@ class ConstantGate(Gate):
         return [alg.sub(wires[i], consts[i]) for i in range(self.num_consts)]
 
     def eval_stacked(self, alg, warr, consts, ctx):
-        return gl.sub(warr, torch.stack(consts[:self.num_consts]))
+        return alg.sub(warr, torch.stack(consts[:self.num_consts]))
 
 
 class PublicInputGate(Gate):
@@ -246,7 +248,7 @@ class PublicInputGate(Gate):
         return [alg.sub(wires[i], pis[i]) for i in range(self.num_cols)]
 
     def eval_stacked(self, alg, warr, consts, ctx):
-        return gl.sub(warr, torch.stack(ctx["pi_vals"][:self.num_cols]))
+        return alg.sub(warr, torch.stack(ctx["pi_vals"][:self.num_cols]))
 
 
 class ArithmeticGate(Gate):
@@ -290,8 +292,8 @@ class ArithmeticGate(Gate):
 
     def eval_stacked(self, alg, warr, consts, ctx):
         m1, m2, ad, o = warr.reshape((self.num_ops, self.WIRES_PER_OP) + warr.shape[1:]).unbind(1)
-        t = gl.add(gl.mul(consts[0], gl.mul(m1, m2)), gl.mul(consts[1], ad))
-        return gl.sub(t, o)
+        t = alg.add(alg.mul(consts[0], alg.mul(m1, m2)), alg.mul(consts[1], ad))
+        return alg.sub(t, o)
 
 
 class BaseSum2Gate(Gate):
@@ -343,8 +345,8 @@ class BaseSum2Gate(Gate):
         x = warr.reshape((self.num_ops, 1 + self.bits) + warr.shape[1:])
         vals, bits = x[:, 0], x[:, 1:]
         w2 = _const_col(tuple(1 << j for j in range(self.bits)), warr.ndim - 1, warr.device)
-        recc = gl.sub(gl.sum_mod(gl.mul(bits, w2), 1), vals)
-        return _flatten_blocks([recc[:, None], _bool_cons(bits)])
+        recc = alg.sub(alg.dot_mod(bits, w2, 1), vals)
+        return _flatten_blocks([recc[:, None], _bool_cons(alg, bits)])
 
 
 class RangeCheckGate(Gate):
@@ -402,9 +404,9 @@ class RangeCheckGate(Gate):
         V, nl = self.num_vals, self.num_limbs
         limbs = warr[V:].reshape((V, nl) + warr.shape[1:])
         w4 = _const_col(tuple(1 << (2 * j) for j in range(nl)), warr.ndim - 1, warr.device)
-        recc = gl.sub(gl.sum_mod(gl.mul(limbs, w4), 1), warr[:V])
-        c2 = _bool_cons(limbs)
-        c4 = gl.mul(gl.mul(c2, gl.sub(limbs, 2)), gl.sub(limbs, 3))
+        recc = alg.sub(alg.dot_mod(limbs, w4, 1), warr[:V])
+        c2 = _bool_cons(alg, limbs)
+        c4 = alg.mul(alg.mul(c2, alg.sub(limbs, 2)), alg.sub(limbs, 3))
         if self.top_base == 2:           # the top limb is one bit
             c4 = torch.cat([c4[:, :nl - 1], c2[:, nl - 1:]], 1)
         return _flatten_blocks([recc[:, None], c4])
@@ -576,15 +578,15 @@ class MulNonNativeGate(Gate):
         x, y, r = warr[:N], warr[N:2 * N], warr[2 * N:3 * N]
         q, b = warr[3 * N:4 * N], warr[4 * N:]
         m = _const_col(tuple(self.ff.limbs29), warr.ndim, warr.device)
-        D = gl.sub(gl.mul(m, q[None]), gl.mul(x[:, None], y[None]))   # [j, k] = m_j q_k - x_j y_k
+        D = alg.sub(alg.mul(m, q[None]), alg.mul(x[:, None], y[None]))  # [j, k]: m_j q_k - x_j y_k
         # conv_i = sum_{j+k=i} D[j, k]: rows of D padded to 2N and read back
         # as rows of 2N - 1 put D[j, k] at column j + k of row j
         S = D.shape[2:]
         rows = F.pad(D, (0, 0) * len(S) + (0, N)).reshape((2 * N * N,) + S)
-        conv = gl.sum_mod(rows[:N * (2 * N - 1)].reshape((N, 2 * N - 1) + S), 0)
-        prev, cur = _carry_chain_tail(gl.sub(b, CARRY_OFFSET), 0)
-        acc = gl.add(gl.add(conv, F.pad(r, (0, 0) * len(S) + (0, N - 1))), prev)
-        return gl.sub(acc, gl.mul(cur, 1 << BITS))
+        conv = alg.sum_mod(rows[:N * (2 * N - 1)].reshape((N, 2 * N - 1) + S), 0)
+        prev, cur = _carry_chain_tail(alg.sub(b, CARRY_OFFSET), 0)
+        acc = alg.add(alg.add(conv, F.pad(r, (0, 0) * len(S) + (0, N - 1))), prev)
+        return alg.sub(acc, alg.mul(cur, 1 << BITS))
 
 
 class NonNativeAddGate(Gate):
@@ -667,7 +669,7 @@ class NonNativeAddGate(Gate):
         return out
 
     def eval_stacked(self, alg, warr, consts, ctx):
-        return _nnaddsub_eval_stacked_op(self, warr, is_sub=False)
+        return _nnaddsub_eval_stacked_op(self, alg, warr, is_sub=False)
 
 
 class NonNativeSubGate(Gate):
@@ -741,7 +743,7 @@ class NonNativeSubGate(Gate):
         return out
 
     def eval_stacked(self, alg, warr, consts, ctx):
-        return _nnaddsub_eval_stacked_op(self, warr, is_sub=True)
+        return _nnaddsub_eval_stacked_op(self, alg, warr, is_sub=True)
 
 
 class NonNativeAddManyGate(Gate):
@@ -806,12 +808,12 @@ class NonNativeAddManyGate(Gate):
     def eval_stacked(self, alg, warr, consts, ctx):
         N, k = self.N, self.k
         S = warr.shape[1:]
-        asum = gl.sum_mod(warr[:k * N].reshape((k, N) + S), 0)
+        asum = alg.sum_mod(warr[:k * N].reshape((k, N) + S), 0)
         s, ovf, c = warr[k * N:(k + 1) * N], warr[(k + 1) * N], warr[(k + 1) * N + 1:]
-        ovm = gl.mul(ovf, _const_col(tuple(self.ff.limbs29), warr.ndim - 1, warr.device))
-        prev, cur = _carry_chain_tail(gl.sub(c, CARRY_OFFSET), 0)
-        acc = gl.add(gl.sub(gl.sub(asum, s), ovm), prev)
-        return gl.sub(acc, gl.mul(cur, 1 << BITS))
+        ovm = alg.mul(ovf, _const_col(tuple(self.ff.limbs29), warr.ndim - 1, warr.device))
+        prev, cur = _carry_chain_tail(alg.sub(c, CARRY_OFFSET), 0)
+        acc = alg.add(alg.sub(alg.sub(asum, s), ovm), prev)
+        return alg.sub(acc, alg.mul(cur, 1 << BITS))
 
 
 class BigCmpGate(Gate):
@@ -881,7 +883,7 @@ class BigCmpGate(Gate):
         return out
 
     def eval_stacked(self, alg, warr, consts, ctx):
-        return _bigcmp_eval_stacked_op(self, warr)
+        return _bigcmp_eval_stacked_op(self, alg, warr)
 
 
 class RandomAccessGate(Gate):
@@ -976,15 +978,15 @@ class RandomAccessGate(Gate):
         idx, out, items = routed[:, 0], routed[:, 1], routed[:, 2:]
         bits = warr[nc * R:nc * (R + nb)].reshape((nc, nb) + S)
         w2 = _const_col(tuple(1 << j for j in range(nb)), warr.ndim - 1, warr.device)
-        parts = [_bool_cons(bits), gl.sub(gl.sum_mod(gl.mul(bits, w2), 1), idx)[:, None]]
+        parts = [_bool_cons(alg, bits), alg.sub(alg.dot_mod(bits, w2, 1), idx)[:, None]]
         if self.split:
             halves = warr[nc * (R + nb):].reshape((nc, 2) + S)       # t0, t1
-            within = _randacc_interp_stacked(items.reshape((nc, 2, -1) + S), bits[:, None],
+            within = _randacc_interp_stacked(alg, items.reshape((nc, 2, -1) + S), bits[:, None],
                                              nb - 1, 2)
             t0, t1 = halves.unbind(1)
-            sel = gl.add(t0, gl.mul(bits[:, nb - 1], gl.sub(t1, t0)))
-            parts.append(gl.sub(within, halves))
+            sel = alg.add(t0, alg.mul(bits[:, nb - 1], alg.sub(t1, t0)))
+            parts.append(alg.sub(within, halves))
         else:
-            sel = _randacc_interp_stacked(items, bits, nb, 1)
-        parts.append(gl.sub(sel, out)[:, None])
+            sel = _randacc_interp_stacked(alg, items, bits, nb, 1)
+        parts.append(alg.sub(sel, out)[:, None])
         return _flatten_blocks(parts)

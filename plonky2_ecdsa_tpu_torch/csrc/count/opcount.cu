@@ -2,7 +2,7 @@
 // run, so that the SASS instruction count of one thread can be taken (no
 // kernel here has a loop left after unrolling).  The counts say how many
 // issue slots THIS implementation spends on one permutation, one grind
-// candidate, one multiply, one butterfly; chip_smoke.py reads them.  The
+// candidate, one multiply, one add, one butterfly; chip_smoke.py reads them.  The
 // permutation and the grind candidate are the very device functions of
 // poseidon2.cu that the kernels run (permute_state, grind_word7), with
 // their round loops unrolled; the kernels that run keep their loops.  A
@@ -16,6 +16,12 @@
 //   probe_mul_lazy    probe_base + one lazy multiply (the permutation's)
 //   probe_butterfly   probe_base + one NTT butterfly (gl::butterfly: multiply,
 //                     lazy add and subtract)
+//   probe_add         probe_base + one canonical add (gl::add, field.cu's add)
+//   probe_sub         probe_base + one canonical subtract (gl::sub)
+//   probe_sum2        three loads, two stores: two words summed on 96 bits,
+//                     folded and made canonical (field.cu's reductions)
+//   probe_sum3        probe_sum2 with a third word: + one gl::add96 of a word,
+//                     the step of a reduction's loop
 
 #include <cuda_runtime.h>
 
@@ -64,6 +70,34 @@ __global__ void probe_butterfly(const uint64_t* a, const uint64_t* b, const uint
   gl::butterfly(x, y, w[i]);
   o0[i] = x;
   o1[i] = y;
+}
+
+__global__ void probe_add(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                          uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = a[i] ^ w[i];
+  o1[i] = gl::add(b[i], w[i]);
+}
+
+__global__ void probe_sub(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                          uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = a[i] ^ w[i];
+  o1[i] = gl::sub(b[i], w[i]);
+}
+
+__global__ void probe_sum2(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                           uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = w[i];
+  o1[i] = gl::canon(gl::fold96(gl::add96(gl::w96{a[i], 0u}, b[i])));
+}
+
+__global__ void probe_sum3(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                           uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = w[i];
+  o1[i] = gl::canon(gl::fold96(gl::add96(gl::add96(gl::w96{a[i], 0u}, b[i]), w[i])));
 }
 
 }  // extern "C"

@@ -116,14 +116,6 @@ def _suffix_prod_exclusive(x):
     return torch.cat([x[..., 1:], torch.ones_like(x[..., :1])], -1)
 
 
-def _prod_last(x):
-    """Product over the last axis (a power of two long)."""
-    while x.shape[-1] > 1:
-        k = x.shape[-1] // 2
-        x = gl.mul(x[..., :k], x[..., k:])
-    return x[..., 0]
-
-
 def _batch_inverse_axis1(x):
     """Montgomery batch inversion along axis 1 of [B, k, n]: one Fermat
     ladder on the product, inv_i = prefix_i * suffix_i / total."""
@@ -136,10 +128,16 @@ def _batch_inverse_axis1(x):
     return gl.mul(gl.mul(pre, suf), tinv[..., None]).movedim(-1, 1)
 
 
-def _chunk_prod(x, chunk: int):
-    """[B, nr, n] -> per-chunk products [B, nr/chunk, n]."""
+def _chunk_prod(x, chunk: int, f=gl):
+    """[B, nr, n] -> the products of its runs of `chunk` (a power of two)
+    columns [B, nr/chunk, n], halving along the run's axis, in the field
+    operations of `f` (the module goldilocks or a TorchAlgebra)."""
     B, nr, n = x.shape
-    return _prod_last(x.reshape(B, nr // chunk, chunk, n).movedim(2, -1))
+    x = x.reshape(B, nr // chunk, chunk, n)
+    while x.shape[2] > 1:
+        k = x.shape[2] // 2
+        x = f.mul(x[:, :, :k], x[:, :, k:])
+    return x[:, :, 0]
 
 
 def _ext_cat(exts):
@@ -206,16 +204,17 @@ def _lde_commit_sharded(vals, N: int, cap_height: int, shard):
     return coeffs, lde, _tree_sharded(lde, cap_height, shard)
 
 
-def _lookup_terms(bk, lk, g: int, wires, alpha):
+def _lookup_terms(bk, lk, g: int, wires, alpha, f):
     """Lookup gate g's (of lk.gates) 3-term batches over [B, T, m] wires:
     (D_b, N_b) with D = d0 d1 d2 and N = d0 d1 + (d0 + d1) d2, d = alpha -
-    scale * wire."""
-    d = gl.sub(alpha[:, None, None], gl.mul(wires[:, bk.lookup_cols[g]], bk.lookup_scales[g]))
+    scale * wire, in the field operations of `f` (the module goldilocks or
+    a TorchAlgebra)."""
+    d = f.sub(alpha[:, None, None], f.mul(wires[:, bk.lookup_cols[g]], bk.lookup_scales[g]))
     B, _T, m = d.shape
     d = d.reshape(B, lk.num_batches, 3, m)
     d0, d1, d2 = d[:, :, 0], d[:, :, 1], d[:, :, 2]
-    d01 = gl.mul(d0, d1)
-    return gl.mul(d01, d2), gl.add(d01, gl.mul(gl.add(d0, d1), d2))
+    d01 = f.mul(d0, d1)
+    return f.mul(d01, d2), f.add(d01, f.mul(f.add(d0, d1), d2))
 
 
 def _lookup_polys_all(data, bk, wires, alphas):
@@ -233,7 +232,7 @@ def _lookup_polys_all(data, bk, wires, alphas):
     for alpha in alphas:
         gate_Ns = []
         for g in range(len(lk.gates)):
-            D, Ng = _lookup_terms(bk, lk, g, wires, alpha)
+            D, Ng = _lookup_terms(bk, lk, g, wires, alpha, gl)
             dens.append(D)
             gate_Ns.append(Ng)
         dens.append(gl.sub(alpha[:, None], bk.lookup_table)[:, None])
@@ -277,13 +276,14 @@ def _over_domain(eval_chunk, N: int, shard):
     return joined
 
 
-def _add_gate_constraints(comb, gates, w, fixed, pic, apows, perm_slots: int, num_consts: int):
+def _add_gate_constraints(alg, comb, gates, w, fixed, pic, apows, perm_slots: int,
+                          num_consts: int):
     """comb[c] += sum over gates g of sel_g * sum_s alpha_c^(perm_slots + s)
-    cons_{g,s} over a domain slice: w [B, wires, m], fixed [cols, m] (the
+    cons_{g,s} over a domain slice, in the field operations of `alg` (a
+    TorchAlgebra of shape [B, m]): w [B, wires, m], fixed [cols, m] (the
     constant columns, then one selector a gate), pic [B, PI cols, m], apows
     [B, slots] a challenge.  Each gate's constraints come from
     Gate.eval_stacked as one [k, B, m] tensor."""
-    alg = TorchAlgebra((w.shape[0], w.shape[-1]), w.device)
     consts = list(fixed[:num_consts, None].unbind(0))          # [1, m] each
     for gi, gate in enumerate(gates):
         if gate.num_constraints == 0:
@@ -295,8 +295,8 @@ def _add_gate_constraints(comb, gates, w, fixed, pic, apows, perm_slots: int, nu
         k = cons.shape[0]
         for c in range(len(comb)):
             av = apows[c][:, perm_slots:perm_slots + k].t()[..., None]
-            term = gl.sum_mod(gl.mul(cons, av), 0)
-            comb[c] = gl.add(comb[c], gl.mul(fixed[num_consts + gi], term))
+            term = alg.dot_mod(cons, av, 0)
+            comb[c] = alg.add(comb[c], alg.mul(fixed[num_consts + gi], term))
 
 
 def _quotient_chunk(data, bk, fr, w, fixed, zsc, zshc, pic, l0, zh, ids):
@@ -304,7 +304,9 @@ def _quotient_chunk(data, bk, fr, w, fixed, zsc, zshc, pic, l0, zh, ids):
     C, m], from the slice's wires LDE w [B, W, m], fixed LDE [F0, m], zs LDE
     zsc [B, Z, m], Z columns one row on zshc [B, len(z_idx), m], PI LDE pic
     [B, K, m], L_0 l0 [m], 1 / Z_H zh [m] and identity columns ids [nr, m]
-    (_quotient_slices), and the batch's challenges in `fr`."""
+    (_quotient_slices), and the batch's challenges in `fr`.  The field
+    arithmetic is a TorchAlgebra's: one kernel an operation on a CUDA
+    device."""
     circuit = data.circuit
     cfg = circuit.config
     C = cfg.num_challenges
@@ -317,25 +319,24 @@ def _quotient_chunk(data, bk, fr, w, fixed, zsc, zshc, pic, l0, zh, ids):
     lk = data.lookup
     apows = fr.apows
     shape = (B, w.shape[-1])
+    alg = TorchAlgebra(shape, w.device)
     sig = fixed[sel_off + S:sel_off + S + nr]
     comb = [torch.zeros(shape, dtype=torch.int64, device=w.device) for _ in range(C)]
+
     for c in range(C):
         beta = fr.betas[c][:, None, None]
         gamma = fr.gammas[c][:, None, None]
-        f = gl.add(gl.add(w[:, :nr], gl.mul(ids[None], beta)), gamma)
-        g = gl.add(gl.add(w[:, :nr], gl.mul(sig[None], beta)), gamma)
-        fp = _prod_last(f.reshape(B, nchunks, chunk, -1).movedim(2, -1))
-        gp = _prod_last(g.reshape(B, nchunks, chunk, -1).movedim(2, -1))
+        fp = _chunk_prod(alg.add(alg.add(w[:, :nr], alg.mul(ids[None], beta)), gamma), chunk, alg)
+        gp = _chunk_prod(alg.add(alg.add(w[:, :nr], alg.mul(sig[None], beta)), gamma), chunk, alg)
         z = zsc[:, c * nchunks]
         prev = zsc[:, c * nchunks: (c + 1) * nchunks]
         left = torch.cat([prev[:, 1:], zshc[:, c][:, None]], 1)
-        term = gl.sub(gl.mul(left, gp), gl.mul(prev, fp))              # [B, nchunks, m]
-        wt = gl.mul(term, apows[c][:, 1:1 + nchunks, None])
-        comb[c] = gl.add(comb[c], gl.sum_mod(wt, 1))
-        l0z = gl.mul(l0, gl.sub(z, 1))
-        comb[c] = gl.add(comb[c], gl.mul(l0z, apows[c][:, 0:1]))
+        term = alg.sub(alg.mul(left, gp), alg.mul(prev, fp))           # [B, nchunks, m]
+        comb[c] = alg.add(comb[c], alg.dot_mod(term, apows[c][:, 1:1 + nchunks, None], 1))
+        l0z = alg.mul(l0, alg.sub(z, 1))
+        comb[c] = alg.add(comb[c], alg.mul(l0z, apows[c][:, 0:1]))
 
-    _add_gate_constraints(comb, circuit.gates, w, fixed, pic, apows, data.perm_slots,
+    _add_gate_constraints(alg, comb, circuit.gates, w, fixed, pic, apows, data.perm_slots,
                           cfg.num_constant_cols)
 
     if lk is not None:
@@ -349,29 +350,29 @@ def _quotient_chunk(data, bk, fr, w, fixed, zsc, zshc, pic, l0, zh, ids):
             zoff = C * nchunks + c * lk.cols_per_challenge
             h_tab = zsc[:, zoff + nb]
             # slot 0: h_tab * (alpha - t) - m
-            t0 = gl.sub(gl.mul(h_tab, gl.sub(a[:, None], tv)), mv)
-            comb[c] = gl.add(comb[c], gl.mul(t0, ap[:, base_slot:base_slot + 1]))
+            t0 = alg.sub(alg.mul(h_tab, alg.sub(a[:, None], tv)), mv)
+            comb[c] = alg.add(comb[c], alg.mul(t0, ap[:, base_slot:base_slot + 1]))
             # slots 1..nb: sum over gates of sel * (h_b * D_b - N_b)
             hb = zsc[:, zoff:zoff + nb]
             cons = torch.zeros_like(hb)
             selsum = torch.zeros(shape, dtype=torch.int64, device=w.device)
             for g, (gi, _g) in enumerate(lk.gates):
                 sel = fixed[sel_off + gi]
-                D, Ng = _lookup_terms(bk, lk, g, w, a)
-                cons = gl.add(cons, gl.mul(gl.sub(gl.mul(hb, D), Ng), sel))
-                selsum = gl.add(selsum, sel.expand(shape))
-            wt = gl.mul(cons, ap[:, base_slot + 1:base_slot + 1 + nb, None])
-            comb[c] = gl.add(comb[c], gl.sum_mod(wt, 1))
+                D, Ng = _lookup_terms(bk, lk, g, w, a, alg)
+                cons = alg.add(cons, alg.mul(alg.sub(alg.mul(hb, D), Ng), sel))
+                selsum = alg.add(selsum, sel)
+            weights = ap[:, base_slot + 1:base_slot + 1 + nb, None]
+            comb[c] = alg.add(comb[c], alg.dot_mod(cons, weights, 1))
             # slot nb+1: Z(gx) - Z(x) - sel_sum * sum_b h_b + h_tab
             zlk = zsc[:, zoff + nb + 1]
-            step = gl.add(gl.sub(gl.sub(zshc[:, C + c], zlk),
-                                 gl.mul(selsum, gl.sum_mod(hb, 1))), h_tab)
-            comb[c] = gl.add(comb[c], gl.mul(step, ap[:, base_slot + 1 + nb:base_slot + 2 + nb]))
+            step = alg.add(alg.sub(alg.sub(zshc[:, C + c], zlk),
+                                   alg.mul(selsum, alg.sum_mod(hb, 1))), h_tab)
+            comb[c] = alg.add(comb[c], alg.mul(step, ap[:, base_slot + 1 + nb:base_slot + 2 + nb]))
             # slot nb+2: L0 * Z (the running sum starts at zero)
-            comb[c] = gl.add(comb[c], gl.mul(gl.mul(l0, zlk),
-                                             ap[:, base_slot + 2 + nb:base_slot + 3 + nb]))
+            comb[c] = alg.add(comb[c], alg.mul(alg.mul(l0, zlk),
+                                               ap[:, base_slot + 2 + nb:base_slot + 3 + nb]))
 
-    return torch.stack([gl.mul(q, zh) for q in comb], 1)
+    return torch.stack([alg.mul(q, zh) for q in comb], 1)
 
 
 def _quotient_slices(bk, fr, sl) -> tuple:

@@ -183,7 +183,10 @@ def quotient_gate_ops(gates, num_consts: int, challenges: int, device="cpu") -> 
     (``prover._add_gate_constraints``) issues for one domain chunk of a
     circuit with these gates, counted on random inputs [B=2, 8 points]: the
     count does not depend on the chunk's shape.  A first, uncounted pass
-    makes the gates' cached constants."""
+    makes the gates' cached constants.  On a CUDA device the field
+    operations are launches of fields/goldilocks_cuda's kernels, which a
+    dispatch mode does not see: there it counts the rest."""
+    from ..circuit.algebra import TorchAlgebra
     from ..prover import prover
 
     rng = np.random.default_rng(0)
@@ -197,7 +200,8 @@ def quotient_gate_ops(gates, num_consts: int, challenges: int, device="cpu") -> 
     pic = field(B, max(getattr(g, "num_cols", 1) for g in gates), m)
     apows = [field(B, max(g.num_constraints for g in gates)) for _ in range(challenges)]
     comb = [field(B, m) for _ in range(challenges)]
-    prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+    alg = TorchAlgebra((B, m), device)
+    prover._add_gate_constraints(alg, comb, gates, w, fixed, pic, apows, 0, num_consts)
     with EagerOpCounter() as counter:
-        prover._add_gate_constraints(comb, gates, w, fixed, pic, apows, 0, num_consts)
+        prover._add_gate_constraints(alg, comb, gates, w, fixed, pic, apows, 0, num_consts)
     return counter.count
