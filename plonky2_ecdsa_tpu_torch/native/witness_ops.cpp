@@ -14,6 +14,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 typedef uint32_t u32;
 typedef uint64_t u64;
@@ -441,7 +442,17 @@ int op_mul_nn(u64 *vals, i64 B, const i64 *x_t, i64 nx, const i64 *y_t, i64 ny,
     return 0;
 }
 
-// x*inv = q*m + 1; writes inv (9), q (9), carries (16).
+static inline void mul_mod(const Big &a, const Big &b, const Big &m, Big &out) {
+    Big p, q;
+    big_mul(a, b, p);
+    big_divmod(p, m, q, out);
+}
+
+// x*inv = q*m + 1; writes inv (9), q (9), carries (16).  The lanes share one
+// modular inversion (Montgomery's trick): the product of every lane's x mod m,
+// its inverse, then each lane's inverse from the prefix products, walking
+// back.  A lane with x == 0 mod m stays out of the product and gets inv = 0,
+// as mod_inverse gives it.
 int op_inv_nn(u64 *vals, i64 B, const i64 *x_t, i64 nx, const i64 *inv_t,
               const i64 *q_t, const i64 *b_t,
               const i64 *m_dig, i64 nmd, const i64 *m29) {
@@ -450,12 +461,40 @@ int op_inv_nn(u64 *vals, i64 B, const i64 *x_t, i64 nx, const i64 *inv_t,
     for (int i = 0; i < nmd; i++) m.d[i] = (u32)m_dig[i];
     m.n = (int)nmd;
     big_norm(m);
+    std::vector<Big> xr(B), before(B), inv(B);
+    Big acc, t, q;
+    big_zero(acc);
+    acc.d[0] = 1;
+    acc.n = 1;
+    for (i64 b = 0; b < B; b++) {
+        u32 x9[NL];
+        load_limbs(vals, B, x_t, (int)nx, b, x9, NL);
+        Big X;
+        from29(x9, NL, X);
+        big_divmod(X, m, q, xr[b]);
+        before[b] = acc;
+        if (xr[b].n != 0) {
+            mul_mod(acc, xr[b], m, t);
+            acc = t;
+        }
+    }
+    mod_inverse(acc, m, t);
+    acc = t;
+    for (i64 b = B - 1; b >= 0; b--) {
+        if (xr[b].n == 0) {
+            big_zero(inv[b]);
+            continue;
+        }
+        mul_mod(acc, before[b], m, inv[b]);
+        mul_mod(acc, xr[b], m, t);
+        acc = t;
+    }
     for (i64 b = 0; b < B; b++) {
         u32 x9[NL], inv9[NL], q9[NL], r9[NL];
         load_limbs(vals, B, x_t, (int)nx, b, x9, NL);
-        Big X, I, PR, Q, R;
+        Big X, PR, Q, R;
+        const Big &I = inv[b];
         from29(x9, NL, X);
-        mod_inverse(X, m, I);
         to29(I, inv9, NL);
         big_mul(X, I, PR);
         big_divmod(PR, m, Q, R);

@@ -217,6 +217,18 @@ def _lookup_terms(bk, lk, g: int, wires, alpha, f):
     return f.mul(d01, d2), f.add(d01, f.mul(f.add(d0, d1), d2))
 
 
+def lookup_counts(data) -> dict:
+    """The LogUp work of a batch's Z stage (_lookup_polys_all), lane by
+    lane: its challenges, the helper columns (3-term batches) a challenge,
+    the lookup gates, and the denominator columns batch-inverted across the
+    challenges (a batch's per gate and the table's).  Zeros without lookups."""
+    lk = data.lookup
+    if lk is None:
+        return dict(challenges=0, batches=0, gates=0, denominators=0)
+    C, G, nb = data.circuit.config.num_challenges, len(lk.gates), lk.num_batches
+    return dict(challenges=C, batches=nb, gates=G, denominators=C * (G * nb + 1))
+
+
 def _lookup_polys_all(data, bk, wires, alphas):
     """LogUp committed columns on H, per challenge: helpers h_b, the table
     helper m / (alpha - t) and the running sum Z (prover.py:327).  All
@@ -514,6 +526,7 @@ def _front(data, bk: Backend, wires, pi, pis, stop_after=None, shard=None):
         z = _prefix_prod_exclusive(R[-1])
         zs_list.append(z)
         zs_list += [gl.mul(z, R[t]) for t in range(nchunks - 1)]
+    trace.stamp("zs_perm")
     if lk is not None:
         for cols in _lookup_polys_all(data, bk, wires, lk_alphas):
             zs_list += cols
@@ -1121,6 +1134,7 @@ class _CapturedProve:
 
     def __init__(self, run: Prover, expand, host_inputs):
         data, bk, dev = run.data, run.backend, run.device
+        self.lookup = lookup_counts(data)
         self.inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
                        for a in host_inputs]
         self._load(host_inputs)
@@ -1235,7 +1249,7 @@ class _CapturedProve:
         over the captures (a lower bound of the graphs' host memory: they
         reuse what the warm-up freed); the device memory the captures
         reserved (the pool, the chunk buffers and the quotient's values);
-        kernel launches a batch."""
+        kernel launches a batch; the LogUp work of a batch (lookup_counts)."""
         parts = {"front": self.front, "chunk": self.chunk, "back": self.back}
         reps = {"front": 1, "chunk": len(self.domain), "back": 1}
         launches = {k.__name__: sum(reps[p] * g.launches[k] for p, g in parts.items())
@@ -1246,7 +1260,8 @@ class _CapturedProve:
                     nodes={p: g.nodes for p, g in parts.items()},
                     nodes_per_batch=sum(reps[p] * g.nodes for p, g in parts.items()),
                     domain_chunks=len(self.domain), host_bytes=self.host_bytes,
-                    device_bytes=self.device_bytes, launches=launches)
+                    device_bytes=self.device_bytes, launches=launches,
+                    lookup=self.lookup)
 
 
 def make_prover(data: CircuitData) -> Prover:

@@ -23,16 +23,18 @@ A stamp either opens a part of the batch (``start=True``: "upload", "front",
 at the previous stamp.  The prover's stamps, in stream order:
 
     upload:   upload
-    front:    expand, commit, challenges, zs_vals, zs, alphas
+    front:    expand, commit, challenges, zs_perm, zs_vals, zs, alphas
     quotient: chunk.<i>, once per domain chunk (each opens "quotient" anew)
     back:     quotient, openings, reduced, fri, grind, fri_all, queries[, pack]
     readback: readback
 
 A stage named by one of ``prover.STOP_AFTER`` ends where ``prove_core``
-returns for that ``stop_after``; "alphas" ends the front (the quotient's
-challenges and tables), "reduced" is FRI's reduced polynomial, "fri" its
-folds up to the grind, "queries" the initial openings and "pack" (the card
-only) the proof's packing for the readback.  Between two parts lie launch
+returns for that ``stop_after``; "zs_perm" is the permutation's Z columns
+(the grand products), so "zs_vals" is the LogUp columns and their stack;
+"alphas" ends the front (the quotient's challenges and tables), "reduced" is
+FRI's reduced polynomial, "fri" its folds up to the grind, "queries" the
+initial openings and "pack" (the card only) the proof's packing for the
+readback.  Between two parts lie launch
 gaps and waits, which no stage covers.  On the card the upload, the chunks'
 stamps (copies in, replay, copy out) and the readback are eager launches,
 the rest kernel nodes of the front and back graphs.
@@ -61,7 +63,7 @@ import torch
 
 BATCHES = 1 << 12
 SPANS = 1 << 16
-SLOTS = 256            # stamps a buffer holds (the outer proof's batch writes 36)
+SLOTS = 256            # stamps a buffer holds (the outer proof's batch writes 37)
 CALIBRATION_READS = 8
 
 _on = True

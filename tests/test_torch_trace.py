@@ -32,7 +32,7 @@ from plonky2_ecdsa_tpu_torch.prover import prover
 from test_torch_bridge import from_reference_proof
 from test_torch_graph_prover import CaptureGuard, _vals_body, _wide_body, demo  # noqa: F401
 
-FRONT = ["expand", "commit", "challenges", "zs_vals", "zs", "alphas"]
+FRONT = ["expand", "commit", "challenges", "zs_perm", "zs_vals", "zs", "alphas"]
 BACK = ["quotient", "openings", "reduced", "fri", "grind", "fri_all", "queries"]
 
 
