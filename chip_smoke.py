@@ -16,7 +16,10 @@ From the repository root, on a machine with one CUDA device:
      arithmetic needs whatever the code) and, beside it, the issue slots that
      this code's own instruction count fills; the quotient's field kernels
      (csrc/field.cu: mul, add, sub, the weighted sum dot_mod) likewise, on
-     the operands of a B=32 domain chunk and of one outer B=8 operation;
+     the operands of a B=32 domain chunk and of one outer B=8 operation; and
+     FRI's reduced polynomial (csrc/fri.cu) over the whole domain of the
+     secp256k1 and P-256 B=32 and the outer B=8 layouts, as the prover
+     launches it;
   3. proves the small demo circuit (B=2) on the card and checks the proof
      leaf for leaf against the port's own proof on the CPU (plain kernels),
      and its digest against the value frozen from the reference; then the
@@ -254,7 +257,8 @@ def sass_instruction_counts() -> dict:
     sass = subprocess.run([dump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
     os.remove(cubin)
     names = ("permute_unrolled", "grind_candidate", "probe_base", "probe_mul", "probe_mul_lazy",
-             "probe_butterfly", "probe_add", "probe_sub", "probe_sum2", "probe_sum3")
+             "probe_butterfly", "probe_add", "probe_sub", "probe_sum2", "probe_sum3", "probe_mac2",
+             "probe_mac3", "probe_inverse")
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -627,7 +631,74 @@ def check_kernels(dev, card, sass):
                      "is XLA-fused jnp)", fn, err, ms, plain_ms, 8 * words, ops, instrs)
         print(f"{name} {what}: max_abs_err={err} (tolerance 0), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, {bounds}  ({card.line})")
+    check_fri_reduced(dev, card, sass, row)
     return rows
+
+
+# FRI's reduced polynomial (csrc/fri.cu): the layouts it runs at, (B, rows of
+# the fixed, wires, zs and quotient LDEs, zs rows opened at g zeta, N)
+FRI_LAYOUTS = {"fri_reduced_poly": (BATCH, (129, 128, 120, 8), 4, 1 << 15),
+               "fri_reduced_poly_p256": (BATCH, (P256_FIXED_COLS, 128, P256_ZS_COLS, 8), 4,
+                                         1 << 15),
+               "fri_reduced_poly_outer": (REC_BATCH, (136, OUTER_WIRES, 64, 16), 2,
+                                          1 << OUTER_LOG_LDE)}
+INVERSE_MULS = 72              # gl::inverse's chain: 64 squares, 8 multiplies
+# the least multiplies a point past its sums: two norms (3 each), Montgomery's
+# trick over a thread's 2 V norms (3 a norm) and its one inversion
+# (INVERSE_MULS / V a point)
+FRI_NEEDED_POINT_MULS = 2 * 3 + 2 * 3
+# the canonical multiplies fri.cu spends a point past its sums and its one
+# inversion for two points: two norms (3 each), half the Montgomery trick
+# (4 + 3 + 4 for four norms), two conjugates over the norm (2 each), three
+# extension products (5 each)
+FRI_POINT_MULS = 6 + 11 / 2 + 4 + 15
+
+
+def check_fri_reduced(dev, card, sass, row):
+    """The reduced polynomial against its plain version over the whole
+    domain of each layout, the one launch a batch the prover makes."""
+    from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
+    from plonky2_ecdsa_tpu_torch.prover import fri_cuda
+
+    per_mac = sass["probe_mac3"] - sass["probe_mac2"]
+    per_inv = sass["probe_inverse"] - sass["probe_base"]
+    per_mul = sass["probe_mul"] - sass["probe_base"]
+    print(f"SASS instructions this code executes per thread: one 160-bit product sum step "
+          f"(gl::mac160) {per_mac}, one inverse (gl::inverse, {INVERSE_MULS} multiplies) "
+          f"{per_inv}  ({card.line})")
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+
+    def words(*shape):
+        return gl._canon(torch.randint(-(1 << 63), (1 << 63) - 1, shape, dtype=torch.int64,
+                                       device=dev, generator=gen))
+
+    for name, (B, rows, K, N) in FRI_LAYOUTS.items():
+        T = sum(rows)
+        lde = (words(rows[0], N), *(words(B, r, N) for r in rows[1:]))
+        lanes = [(words(B), words(B)) for _ in range(3)]
+        args = (words(N), lde, tuple(range(0, rows[2], rows[2] // K))[:K], *lanes,
+                (words(B, T), words(B, T)), (words(B, K), words(B, K)))
+        got, want = fri_cuda.reduced_poly(*args), fri_cuda.reduced_poly_plain(*args)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        assert err == 0.0, f"{name} disagrees with the plain version"
+        ms = cuda_ms(lambda: fri_cuda.reduced_poly(*args), 10)
+        plain_ms = cuda_ms(lambda: fri_cuda.reduced_poly_plain(*args), 2)
+        pairs = B * N
+        nbytes = 8 * (N * (B * sum(rows[1:]) + rows[0] + 1 + 2 * B) + 2 * B * (3 + T + K))
+        ops = pairs * ((T + K) * 2 * (MUL_OPS + ADD_OPS)
+                       + (FRI_NEEDED_POINT_MULS + INVERSE_MULS / fri_cuda.V) * MUL_OPS)
+        instrs = pairs * ((T + K) * 2 * per_mac + per_inv / fri_cuda.V + FRI_POINT_MULS * per_mul)
+        bounds = row(name, "plonky2_ecdsa_tpu_torch/csrc/fri.cu",
+                     "none (the reference's reduction, plonky2_ecdsa_tpu/prover/prover.py:1406, "
+                     "is XLA-fused jnp)", fri_cuda.reduced_poly, err, ms, plain_ms, nbytes, ops,
+                     instrs)
+        print(f"{name} [{B}, {T}, 2^{N.bit_length() - 1}] (rows {'x'.join(map(str, rows))}, "
+              f"{K} at g zeta; the whole domain, one launch a batch): max_abs_err={err} "
+              f"(tolerance 0), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
+              f"({-(-N // fri_cuda.PLAIN_CHUNK)} chunks), {bounds}, by bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, by operations {card.issue_ms(ops):.3f} ms"
+              f"  ({card.line})")
+        del lde, args, got, want
 
 
 def load_anchors():
@@ -1366,7 +1437,7 @@ def mesh_rank(rank, phase, tmp):
     from plonky2_ecdsa_tpu_torch.fields import goldilocks_cuda
     from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
     from plonky2_ecdsa_tpu_torch.parallel import mesh
-    from plonky2_ecdsa_tpu_torch.prover import ntt_cuda, prover, serialize
+    from plonky2_ecdsa_tpu_torch.prover import fri_cuda, ntt_cuda, prover, serialize
 
     backend, world, circuit, grids = MESH_PHASES[phase]
     torch.cuda.set_device(0)
@@ -1386,7 +1457,7 @@ def mesh_rank(rank, phase, tmp):
             inputs = {k: z[k] for k in z.files}
         kernels = (poseidon_cuda.permute, poseidon_cuda.sponge, poseidon_cuda.grind,
                    ntt_cuda.sub_ntt, goldilocks_cuda.add, goldilocks_cuda.sub,
-                   goldilocks_cuda.mul, goldilocks_cuda.dot_mod)
+                   goldilocks_cuda.mul, goldilocks_cuda.dot_mod, fri_cuda.reduced_poly)
         for name, dcn, dp, col in grids:
             m = (mesh.prover_mesh(col_parallel=col) if dcn is None
                  else mesh.prover_mesh_2level(dcn, dp * col, col_parallel=col))

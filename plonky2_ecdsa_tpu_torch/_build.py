@@ -39,6 +39,7 @@ _SIGNATURES = {
     "trace_stamp": [_P, _I, _P],
     "gl_binary": [_I, _P, _LLP, _ULL, _P, _LLP, _ULL, _P, _LLP, _I, _P],
     "gl_reduce": [_P, _LLP, _P, _LLP, _LL, _P, _LLP, _I, _P],
+    "fri_reduced": [_P, _P],
 }
 
 

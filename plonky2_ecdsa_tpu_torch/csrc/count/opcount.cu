@@ -22,6 +22,11 @@
 //                     folded and made canonical (field.cu's reductions)
 //   probe_sum3        probe_sum2 with a third word: + one gl::add96 of a word,
 //                     the step of a reduction's loop
+//   probe_mac2        three loads, two stores: two products summed whole on
+//                     160 bits (gl::mac160), folded and made canonical
+//   probe_mac3        probe_mac2 with a third product: + one gl::mac160, the
+//                     step of fri.cu's sums
+//   probe_inverse     probe_base + one gl::inverse (the addition chain)
 
 #include <cuda_runtime.h>
 
@@ -98,6 +103,28 @@ __global__ void probe_sum3(const uint64_t* a, const uint64_t* b, const uint64_t*
   int i = threadIdx.x;
   o0[i] = w[i];
   o1[i] = gl::canon(gl::fold96(gl::add96(gl::add96(gl::w96{a[i], 0u}, b[i]), w[i])));
+}
+
+__global__ void probe_mac2(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                           uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = w[i];
+  o1[i] = gl::canon(gl::fold160(gl::mac160(gl::mac160(gl::w160{0, 0, 0u}, a[i], w[i]), b[i], w[i])));
+}
+
+__global__ void probe_mac3(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                           uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = w[i];
+  o1[i] = gl::canon(gl::fold160(
+      gl::mac160(gl::mac160(gl::mac160(gl::w160{0, 0, 0u}, a[i], w[i]), b[i], w[i]), a[i], b[i])));
+}
+
+__global__ void probe_inverse(const uint64_t* a, const uint64_t* b, const uint64_t* w,
+                              uint64_t* o0, uint64_t* o1) {
+  int i = threadIdx.x;
+  o0[i] = a[i] ^ w[i];
+  o1[i] = gl::inverse(b[i]);
 }
 
 }  // extern "C"

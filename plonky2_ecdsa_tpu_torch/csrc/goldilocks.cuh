@@ -114,6 +114,51 @@ __device__ __forceinline__ uint64_t sqr_lazy(uint64_t a) { return mul_lazy(a, a)
 // Lazy in, canonical out.
 __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return canon(mul_lazy(a, b)); }
 
+// A sum of whole 128-bit products: lo + 2^64 hi + 2^128 top.
+struct w160 {
+  uint64_t lo, hi;
+  uint32_t top;
+};
+
+// s + a b for any words a and b, the product left unreduced: its two halves
+// added with their carry into top.  Below 2^160 for fewer than 2^32 terms.
+__device__ __forceinline__ w160 mac160(w160 s, uint64_t a, uint64_t b) {
+  const uint64_t lo = a * b, hi = __umul64hi(a, b);
+  asm("add.cc.u64 %0, %0, %3;\n\t"
+      "addc.cc.u64 %1, %1, %4;\n\t"
+      "addc.u32 %2, %2, %5;"
+      : "+l"(s.lo), "+l"(s.hi), "+r"(s.top)
+      : "l"(lo), "l"(hi), "r"(0u));
+  return s;
+}
+
+// s (mod p) as a lazy word: 2^128 == -2^32 (mod p), and top 2^32 <= 2^64 -
+// 2^32 for any 32-bit top, which sub_lazy takes.
+__device__ __forceinline__ uint64_t fold160(w160 s) {
+  return sub_lazy(reduce128_lazy(s.hi, s.lo), (uint64_t)s.top << 32);
+}
+
+// a^(p - 2) for a lazy a, canonical: the inverse, and 0 for 0.  An addition
+// chain of 64 squares and 8 multiplies; x_k = a^(2^k - 1), and p - 2 has
+// 31 ones, a zero, 32 ones: (2^31 - 1) 2^33 + 2^32 - 1.
+__device__ __forceinline__ uint64_t sqr_n(uint64_t x, int n) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) x = sqr_lazy(x);
+  return x;
+}
+
+__device__ __forceinline__ uint64_t inverse(uint64_t a) {
+  const uint64_t x2 = mul_lazy(sqr_lazy(a), a);
+  const uint64_t x3 = mul_lazy(sqr_lazy(x2), a);
+  const uint64_t x6 = mul_lazy(sqr_n(x3, 3), x3);
+  const uint64_t x12 = mul_lazy(sqr_n(x6, 6), x6);
+  const uint64_t x24 = mul_lazy(sqr_n(x12, 12), x12);
+  const uint64_t x30 = mul_lazy(sqr_n(x24, 6), x6);
+  const uint64_t x31 = mul_lazy(sqr_lazy(x30), a);
+  const uint64_t x32 = mul_lazy(sqr_lazy(x31), a);
+  return canon(mul_lazy(sqr_n(x31, 33), x32));
+}
+
 // One radix-2 butterfly (a, b) -> (a + b w, a - b w): a lazy in and out, b
 // lazy in and out, w canonical or lazy.  Only the product is made canonical,
 // which is what add_lazy and sub_lazy ask of their second operand.

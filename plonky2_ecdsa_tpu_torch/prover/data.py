@@ -216,7 +216,8 @@ class Backend:
         self.zh_inv = gl.from_u64(data.zh_inv, device)
         self.l0_lde = gl.from_u64(data.l0_lde, device)
         self.k_coeffs = gl.from_ints(circuit.k_coeffs, device)          # [nr]
-        self.z_idx = torch.tensor(z_columns(data), device=device)       # zs columns at g*zeta
+        self.z_rows = tuple(z_columns(data))                            # zs columns at g*zeta
+        self.z_idx = torch.tensor(self.z_rows, device=device)
         lk = data.lookup
         if lk is not None:
             # the table column t(x) on H, each lookup gate's selector on H, and

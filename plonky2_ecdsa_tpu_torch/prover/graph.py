@@ -26,11 +26,11 @@ import torch
 from .. import trace
 from ..fields import goldilocks_cuda
 from ..hash import poseidon_cuda
-from . import ntt_cuda
+from . import fri_cuda, ntt_cuda
 
 KERNELS = (poseidon_cuda.permute, poseidon_cuda.sponge, poseidon_cuda.grind, ntt_cuda.sub_ntt,
            goldilocks_cuda.add, goldilocks_cuda.sub, goldilocks_cuda.mul, goldilocks_cuda.neg,
-           goldilocks_cuda.sum_mod, goldilocks_cuda.dot_mod)
+           goldilocks_cuda.sum_mod, goldilocks_cuda.dot_mod, fri_cuda.reduced_poly)
 
 
 @functools.cache

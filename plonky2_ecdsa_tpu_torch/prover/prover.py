@@ -37,7 +37,7 @@ from ..circuit.gates import PublicInputGate
 from ..fields import goldilocks as gl
 from ..hash import merkle
 from ..utils.debug import assert_witness_ok
-from . import fri, graph, ntt
+from . import fri, fri_cuda, graph, ntt
 from .challenger import GRIND_EXHAUSTED, Challenger
 from .data import Backend, CircuitData
 from .data import z_columns as _z_columns  # noqa: F401  (the verifier's and the tests' name)
@@ -406,41 +406,17 @@ def _compute_quotient(data, bk, fr, shard=None):
     return _over_domain(eval_chunk, data.N, shard)[0]
 
 
-def _reduced_poly(data, bk, layout, wires_lde, zs_lde, quot_lde, openings0,
-                  open_zs_gzeta, zeta, gzeta, alpha, z_idx, shard=None):
+def _reduced_poly(data, bk, wires_lde, zs_lde, quot_lde, openings0, open_zs_gzeta, zeta, gzeta,
+                  alpha, shard=None):
     """F(x) = sum_i a^i (p_i(x) - y_i) / (x - zeta)
-            + a^T sum_j a^j (z_j(x) - y'_j) / (x - g zeta)   -> ext [B, N];
-    with a shard each rank evaluates its domain slice (prover.py:1474-1496)."""
-    N = data.N
-    T = layout.total
-    B = wires_lde.shape[0]
-    apows = ntt.ext_powers(alpha, T)                          # ext [B, T]
-    apows1 = ntt.ext_powers(alpha, len(z_idx))
-    ye = gl.ext_mul(apows, openings0)
-    y = (gl.sum_mod(ye[0], 1), gl.sum_mod(ye[1], 1))
-    ye1 = gl.ext_mul(apows1, open_zs_gzeta)
-    y1 = (gl.sum_mod(ye1[0], 1), gl.sum_mod(ye1[1], 1))
-    apow_T = gl.ext_mul((apows[0][:, -1], apows[1][:, -1]), alpha)
-
-    def bc(e):
-        return (e[0][:, None], e[1][:, None])
-
-    def eval_chunk(sl):
-        x = bk.x[sl].expand(B, -1)
-        inv0 = gl.ext_inverse(gl.ext_sub(gl.ext_from_base(x), bc(zeta)))
-        inv1 = gl.ext_inverse(gl.ext_sub(gl.ext_from_base(x), bc(gzeta)))
-        fixed = bk.fixed_lde[..., sl]
-        polys = torch.cat([fixed[None].expand(B, -1, -1), wires_lde[..., sl],
-                           zs_lde[..., sl], quot_lde[..., sl]], 1)   # [B, T, m]
-        acc = tuple(gl.sub(gl.sum_mod(gl.mul(polys, apows[i][..., None]), 1), y[i][:, None])
-                    for i in range(2))
-        F = gl.ext_mul(acc, inv0)
-        zp = zs_lde[:, z_idx, sl]
-        acc1 = tuple(gl.sub(gl.sum_mod(gl.mul(zp, apows1[i][..., None]), 1), y1[i][:, None])
-                     for i in range(2))
-        return gl.ext_add(F, gl.ext_mul(bc(apow_T), gl.ext_mul(acc1, inv1)))
-
-    return tuple(_over_domain(eval_chunk, N, shard))
+            + a^T sum_j a^j (z_j(x) - y'_j) / (x - g zeta)   -> ext [B, N]
+    (fri_cuda.reduced_poly), one call over the domain; with a shard each
+    rank evaluates its domain slice, then gathered (prover.py:1474-1496)."""
+    sl = slice(*((0, data.N) if shard is None else _shard_range(data.N, shard)))
+    sources = (bk.fixed_lde[..., sl], wires_lde[..., sl], zs_lde[..., sl], quot_lde[..., sl])
+    F = fri_cuda.reduced_poly(bk.x[sl], sources, bk.z_rows, zeta, gzeta, alpha, openings0,
+                              open_zs_gzeta)
+    return F if shard is None else tuple(_shard_gather(f, shard, -1) for f in F)
 
 
 # ---------------------------------------------------------------------------
@@ -597,8 +573,8 @@ def _back(data, bk: Backend, fr: _Front, quot_vals, pis, stop_after=None, shard=
     ch.observe_ext_array(open_zs_gzeta)
 
     # ---- FRI ----------------------------------------------------------------
-    F = _reduced_poly(data, bk, layout, fr.wires_lde, fr.zs_lde, quot_lde, openings0,
-                      open_zs_gzeta, zeta, gz, ch.get_ext(), z_idx, shard)
+    F = _reduced_poly(data, bk, fr.wires_lde, fr.zs_lde, quot_lde, openings0, open_zs_gzeta,
+                      zeta, gz, ch.get_ext(), shard)
     trace.stamp("reduced")
     fri_proof = fri.fri_prove(ch, F, N, cfg)
     trace.stamp("fri_all")

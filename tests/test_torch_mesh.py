@@ -26,7 +26,7 @@ from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_d
 from plonky2_ecdsa_tpu_torch.circuit.recursive_verifier import split_proof_lanes
 from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
 from plonky2_ecdsa_tpu_torch.parallel import mesh
-from plonky2_ecdsa_tpu_torch.prover import prover, serialize
+from plonky2_ecdsa_tpu_torch.prover import fri_cuda, prover, serialize
 from plonky2_ecdsa_tpu_torch.prover.data import build_circuit_data
 
 BATCH = 2
@@ -48,10 +48,10 @@ def _odd_vals():
 
 def _rank(rank: int, world: int, tmp: str):
     """One rank: every grid of its world size on the demo circuit; results to
-    files in tmp.  DOMAIN_CHUNK = 8: each rank's domain slice (N/ns = 16 or
-    8 points) runs in more than one chunk where it can."""
+    files in tmp.  DOMAIN_CHUNK = PLAIN_CHUNK = 8: each rank's domain slice
+    (N/ns = 16 or 8 points) runs in more than one chunk where it can."""
     torch.set_num_threads(1)
-    prover.DOMAIN_CHUNK = 8
+    prover.DOMAIN_CHUNK = fri_cuda.PLAIN_CHUNK = 8
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:

@@ -15,7 +15,7 @@ from plonky2_ecdsa_tpu.prover import prover as ref_prover
 from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig, FriConfig
 from plonky2_ecdsa_tpu_torch.circuit.examples import small_demo_circuit, small_demo_witness
 from plonky2_ecdsa_tpu_torch.fields import goldilocks as gl
-from plonky2_ecdsa_tpu_torch.prover import prover
+from plonky2_ecdsa_tpu_torch.prover import fri_cuda, prover
 from plonky2_ecdsa_tpu_torch.prover.data import Backend, build_circuit_data
 
 _FRI = dict(rate_bits=2, cap_height=1, num_query_rounds=12, proof_of_work_bits=8,
@@ -78,6 +78,7 @@ def test_domain_chunked_passes_match_reference(case, monkeypatch):
     """The quotient and the FRI reduced polynomial evaluated in several
     domain chunks give the reference's (unchunked) commitments."""
     monkeypatch.setattr(prover, "DOMAIN_CHUNK", 8)      # N = 32: four chunks
+    monkeypatch.setattr(fri_cuda, "PLAIN_CHUNK", 8)
     got, want = _run_both(case, "fri_all")
     _assert_same(got.caps, want.caps)
     _assert_same(got.final_coeffs, want.final_coeffs)
