@@ -39,9 +39,9 @@ From the repository root, on a machine with one CUDA device:
      launches a batch are the replays' launches, each graph's launches counted
      at its capture), and times steady-state batches (replays, none of which
      launches a kernel eagerly);
-  5. the wide-witness fallback on the card: a forged value table (a value of
-     41 bits under a narrow-classified slot) and a misclassified role (honest
-     table) both warn on stderr and are proved through the full-witness path;
+  5. a wide value on the card: a forged value table (a value of 41 bits
+     under a 29-bit limb's slot) goes up whole, its proof equal to the
+     full-witness path's proof of the forged witness, and is rejected;
   6. the command line in this process, into a temporary directory: sign ->
      build -> prove -> verify (exit 0), verify against a changed statement
      (exit 1), and the saved circuit data loaded back onto the card proving
@@ -54,8 +54,8 @@ From the repository root, on a machine with one CUDA device:
      frozen B=1 value table) -> the outer proof (kernel counts set to 0 just
      before the first, read just after), steady state through
      dispatch_vals/collect -> verify_strict and verify_one_exact; the outer
-     PIs are the inner statements' limbs, no fallback is taken, and a flipped
-     inner statement limb breaks the outer witness;
+     PIs are the inner statements' limbs, and a flipped inner statement limb
+     breaks the outer witness;
   8. one B=2 secp256k1 proof under wide_ecc_config (234 wires, 176 routed);
   9. aggregation: 4 demo proofs -> 2 -> 1 through the 2-to-1 verifier
      circuit; the root proof verifies and binds the four statements in order;
@@ -101,8 +101,6 @@ sys.modules["jax"] = None                 # any import of JAX fails loudly
 sys.modules["plonky2_ecdsa_tpu"] = None   # ... and of the reference package
 
 import concurrent.futures  # noqa: E402
-import contextlib  # noqa: E402
-import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
@@ -865,9 +863,7 @@ def check_graph_prover(name, run, tables, card, anchor=None):
     for vals, pis in tables:
         zero_counts([dict(fn=fn) for fn in kernels])
         t0 = time.time()
-        vn, vw = run._vals_split(vals)
-        inputs = run._expand(torch.from_numpy(vn.view(np.int32)).to(data.device),
-                             torch.from_numpy(vw.view(np.int64)).to(data.device))
+        inputs = run._expand(torch.from_numpy(run._compact(vals).view(np.int64)).to(data.device))
         eager.append(prover.to_host(prover.prove_core(data, run.backend, *inputs), pis))
         eager_s.append(time.time() - t0)
         launches = {fn.__name__: fn.launches for fn in kernels}
@@ -970,62 +966,37 @@ def rejection(data, proof) -> str:
     raise AssertionError("a proof that must be rejected was accepted")
 
 
-def check_fallback(system, vals, pis, proof, card):
-    """The wide-witness fallback on the card, on the first four lanes of the
-    secp256k1 batch.  (a) A forged table, bit 40 set under a narrow-classified
-    slot of lane 0: the warning, the very proof of the full-witness path, and
-    (the forged value being wrong for the circuit) lane 0 rejected, so the
-    real 64-bit value went up and no truncation.  (b) A misclassified role,
-    mul_nn's 34-bit carries declared narrow, on the honest table: the
-    warning, and the accepted proof that the narrow path gives."""
-    from plonky2_ecdsa_tpu_torch.hash import poseidon_cuda
-    from plonky2_ecdsa_tpu_torch.prover import prover, verifier
+def check_wide_value(system, vals, pis, proof, card):
+    """A value of 2^40 goes up whole on the card, on the first four lanes of
+    the secp256k1 batch: a forged table, bit 40 set in lane 0 under a 29-bit
+    product limb of mul_nn (a slot the reference sends in its u32 plane).
+    The run_vals proof equals prover.prove of the forged witness leaf for
+    leaf, no "wide" graphs exist, and (the forged value being wrong for the
+    circuit) lane 0 is rejected, so the 64-bit value went up and no
+    truncation; the honest table then proves to the main path's lane 0."""
+    from plonky2_ecdsa_tpu_torch.prover import prover
 
     lanes = 4
     vals, pis, data = np.ascontiguousarray(vals[:, :lanes]), pis[:lanes], system.data
-    run = system.prover
-    mask = prover._narrow_mask(system.circuit)
-    mask[system.circuit.derived_tids] = False
-    mask &= np.isin(np.arange(len(mask)), run._keep_n)
-    tid = int(np.nonzero(mask)[0][0])
+    circuit, run = system.circuit, system.prover
+    up = np.setdiff1d(circuit.pos_tids, np.concatenate([circuit.derived_tids, circuit.pi_tids]))
+    tid = next(int(t) for op in circuit.tape if op.rec is not None and op.rec[0] == "mul_nn"
+               for t in circuit.read_map[np.ravel(op.rec[1]["r"])] if t in up)
     forged = vals.copy()
     forged[tid, 0] |= np.uint64(1) << np.uint64(40)
-
-    def warned(fn):
-        err = io.StringIO()
-        runs = poseidon_cuda.sponge.launches + poseidon_cuda.sponge.replayed
-        with contextlib.redirect_stderr(err):
-            out = fn()
-        assert "falling back to the wide witness path" in err.getvalue(), err.getvalue()
-        assert poseidon_cuda.sponge.launches + poseidon_cuda.sponge.replayed > runs, \
-            "the fallback left the kernels"
-        return out, err.getvalue().strip()
-
-    got, line = warned(lambda: run.run_vals(forged, pis))
-    wide = prover.prove(data, run._expand_host(forged), pis)
-    assert prover.first_difference(wide, got) is None, "fallback differs from the wide path"
+    got = run.run_vals(forged, pis)
+    assert ("wide", lanes) not in run.graph_stats, "the forged table took the full-witness path"
+    want = prover.prove(data, circuit.witness_matrix(forged), pis)
+    assert prover.first_difference(want, got) is None, \
+        "the forged table's proof differs from the full-witness proof of the forged witness"
     rejected = rejection(data, got)
     assert "lane 0" in rejected
-    print(f"fallback (a), forged table B={lanes}: stderr '{line}'; the proof equals the "
-          f"full-witness path's leaf for leaf; VerifyError: {rejected}")
-
     honest = run.run_vals(vals, pis)
     assert prover.proof_digest(honest, lane=0) == prover.proof_digest(proof, lane=0)
-    roles = prover._NARROW_ROLES["mul_nn"]
-    prover._NARROW_ROLES["mul_nn"] = roles + ("carry",)
-    try:
-        misclassified = prover.Prover(data)
-    finally:
-        prover._NARROW_ROLES["mul_nn"] = roles
-    got, line = warned(lambda: misclassified.run_vals(vals, pis))
-    verifier.verify_strict(data, got)
-    assert prover.first_difference(honest, got) is None
-    assert ("wide", lanes) in misclassified.graph_stats and ("wide", lanes) in run.graph_stats
-    print(f"fallback (b), mul_nn's carries classified narrow, honest table B={lanes}: stderr "
-          f"'{line[:100]}...'; verify_strict accepts the proof, which equals the narrow path's "
-          f"leaf for leaf; the full-witness path ran as its own graphs ("
-          f"{graph_line(misclassified.graph_stats[('wide', lanes)])})  ({card.line})")
-    misclassified.release()
+    print(f"wide value, forged table B={lanes} (bit 40 under mul_nn's limb, target {tid}): the "
+          f"run_vals proof equals the full-witness proof of the forged witness leaf for leaf, no "
+          f"'wide' graphs; VerifyError: {rejected}; the honest table's lane 0 equals the main "
+          f"path's  ({card.line})")
 
 
 def exit_code(argv) -> int:
@@ -1121,17 +1092,6 @@ def demo_inner_proof(batch, seed, dev):
     return idata, prover.prove(idata, W, ic.public_input_values())
 
 
-def no_fallback(fn):
-    """fn() with stderr captured: the wide-witness fallback must not be taken
-    (an honest table has no value above its narrow classification)."""
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        out = fn()
-    sys.stderr.write(err.getvalue())
-    assert "falling back" not in err.getvalue(), f"the fallback was taken: {err.getvalue()}"
-    return out
-
-
 def check_demo_recursion(dev, card, anchors):
     """The demo recursion (B=2, seed 77) on the card: the outer value table,
     fixed cap and lane 0 of the outer proof equal the reference's frozen
@@ -1155,7 +1115,7 @@ def check_demo_recursion(dev, card, anchors):
     odata = build_circuit_data(oc, dev)
     assert hex_words(odata.fixed_tree.cap) == anchors["recursion_demo_fixed_cap"], \
         "the demo outer fixed cap differs from the reference's"
-    proof = no_fallback(lambda: prover.Prover(odata).run_vals(vals, opis))
+    proof = prover.Prover(odata).run_vals(vals, opis)
     assert prover.proof_digest(proof, lane=0) == anchors["recursion_demo_lane0_proof_sha256"], \
         "lane 0 of the demo outer proof differs from the reference's"
     verifier.verify_strict(odata, proof)
@@ -1241,7 +1201,7 @@ def production_recursion(system, dev, card, rows, anchors):
 
     zero_counts(rows)
     t0 = time.time()
-    proof = no_fallback(lambda: run.run_vals(vals, opis))
+    proof = run.run_vals(vals, opis)
     first_s = time.time() - t0
     for r in rows:
         r["launches_recursive"] = r["fn"].replayed
@@ -1265,7 +1225,7 @@ def production_recursion(system, dev, card, rows, anchors):
 
     zero_counts(rows)
     t0 = time.time()
-    again = no_fallback(steady)
+    again = steady()
     steady_s = (time.time() - t0) / STEADY_BATCHES
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(prover.first_difference(proof, p) is None for p in again), \
@@ -1332,7 +1292,7 @@ def check_aggregation(dev, card):
         if lanes == AGG_BATCH // 2:
             level1 = ac
         data = build_circuit_data(ac, dev)
-        proof = no_fallback(lambda: prover.Prover(data).run_vals(vals, apis))
+        proof = prover.Prover(data).run_vals(vals, apis)
         verifier.verify_strict(data, proof)
         level = apis
         sizes.append(ac.n)
@@ -1365,7 +1325,7 @@ def check_sanitizer_and_limbs(system, vals, pis, dev, card):
     from plonky2_ecdsa_tpu_torch.utils.debug import witness_violations
 
     circuit = system.circuit
-    W = system.prover._expand_host(vals)                        # [wires, n, B] u64
+    W = circuit.witness_matrix(vals)                            # [wires, n, B] u64
     t0 = time.time()
     on_card = witness_violations(circuit, torch.from_numpy(W.view(np.int64)).to(dev))
     card_s = time.time() - t0
@@ -1611,7 +1571,7 @@ def main() -> int:
     check_stacked_gates("secp256k1", system.circuit, BATCH, dev, card)
     check_sanitizer_and_limbs(system, vals, pis, dev, card)
     check_mesh(system, vals, pis, proof, dev, card, rows, anchors)
-    check_fallback(system, vals, pis, proof, card)
+    check_wide_value(system, vals, pis, proof, card)
     check_command_line(system, dev, card)
     del vals, pis, proof
     production_recursion(system, dev, card, rows, anchors)

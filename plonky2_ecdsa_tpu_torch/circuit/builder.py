@@ -121,8 +121,13 @@ class Circuit:
         semantic reference; both paths share the value table and give
         bit-identical results (tested).  When the native tape is asked for
         and its library does not build, this raises."""
-        vals = self.value_table(inputs, batch, native)
-        W = np.zeros((self.config.num_wires, self.n, batch), dtype=np.uint64)
+        return self.witness_matrix(self.value_table(inputs, batch, native))
+
+    def witness_matrix(self, vals: np.ndarray) -> np.ndarray:
+        """A value table [num_targets, B] u64 -> the witness matrix
+        [num_wires, n, B] u64: each wire cell holds its target's value,
+        unpopulated cells zero."""
+        W = np.zeros((self.config.num_wires, self.n, vals.shape[1]), dtype=np.uint64)
         W[self.pos_cols, self.pos_rows] = vals[self.pos_tids]
         return W
 

@@ -4,10 +4,13 @@ Counterpart of ``plonky2_ecdsa_tpu.prover.prover``: ``prove_core`` mirrors the
 reference's prove_core (prover.py:458-657) stage by stage, with the same
 ``stop_after`` knobs and the col axis of a device mesh (``shard``, see
 ``parallel/mesh.py``), and ``Prover`` (``make_prover``) its make_jit_prover
-(prover.py:855-1048) with the production ``run_vals`` path: the tape's compact
-value table goes up, the wires are expanded on the device, and the proof
-comes back as a host ``Proof`` of numpy u64 arrays (extension values as (c0,
-c1) tuples), read back as one packed buffer (prover.py:806-838).  On a CUDA
+(prover.py:855-1048) with the production ``run_vals`` path: the rows of the
+tape's value table that the device gathers go up as one u64 table, the wires
+are expanded on the device, and the proof comes back as a host ``Proof`` of
+numpy u64 arrays (extension values as (c0, c1) tuples), read back as one
+packed buffer (prover.py:806-838).  The reference sends the values it knows
+to be below 2^32 as a u32 plane and falls back to the full witness where one
+is wider; one u64 table cuts no value, so the port needs neither.  On a CUDA
 device a ``Prover`` captures that device side once per path and batch size
 as CUDA graphs and replays them for every batch (``_CapturedProve``,
 ``graph.py``), as the reference traces it once and runs each batch as one
@@ -24,7 +27,6 @@ from __future__ import annotations
 import hashlib
 import math
 import os
-import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,7 +42,6 @@ from ..utils.debug import assert_witness_ok
 from . import fri, fri_cuda, graph, ntt
 from .challenger import GRIND_EXHAUSTED, Challenger
 from .data import Backend, CircuitData
-from .data import z_columns as _z_columns  # noqa: F401  (the verifier's and the tests' name)
 
 
 @dataclass
@@ -733,11 +734,9 @@ def proof_leaves(proof: Proof):
         elif x is not None:
             out.append((name, np.asarray(x)))
 
-    for name in ("wires_cap", "zs_cap", "quotient_cap", "openings0", "openings1",
-                 "initial_leaves", "initial_paths"):
+    for name in _PROOF_PARTS:
         add(name, getattr(proof, name))
-    for name in ("caps", "final_coeffs", "indices", "layer_leaves", "layer_paths",
-                 "pow_witness"):
+    for name in _FRI_PARTS:
         add(f"fri.{name}", getattr(fp, name))
     return out
 
@@ -806,52 +805,16 @@ def prove(data: CircuitData, W, pis: np.ndarray) -> Proof:
     return proof
 
 
-# Tape-op output roles whose values are structurally < 2^32 (29-bit limbs,
-# booleans, small in-gate carries, lookup multiplicities).  They go up as one
-# u32 plane; every claim is checked again at dispatch (_vals_split).
-_NARROW_ROLES = {
-    "mul_nn": ("q", "r"),            # 29-bit limbs (carries are 34-bit: wide)
-    "inv_nn": ("inv", "q"),
-    "add_nn": ("s", "ovf", "c"),
-    "sub_nn": ("s", "ovf", "c"),
-    "add_many_nn": ("s", "ovf"),     # its in-gate carries can exceed 32 bits
-    "cmp_const": ("d", "brw", "le"),
-    "split": ("bits",),
-    "is_equal": ("eq",),
-    "lookup_mult": ("m_ts",),
-    "range_lookup": ("limbs",),      # derived on the device (not uploaded)
-    "random_access": ("bits",),
-}
-
-
-def _narrow_mask(circuit) -> np.ndarray:
-    """[num_targets] bool: True where the value-table slot is statically
-    known < 2^32 (by tape-op semantics or constant value)."""
-    mask = np.zeros(circuit.num_targets, bool)
-    rm = circuit.read_map
-    for op in circuit.tape:
-        if op.rec is None:
-            continue
-        kind, payload = op.rec
-        for role in _NARROW_ROLES.get(kind, ()):
-            if role in payload:
-                mask[rm[np.ravel(np.asarray(payload[role], dtype=np.int64))]] = True
-    for tid, v in circuit.constant_values.items():
-        if int(v) < 1 << 32:
-            mask[rm[tid]] = True
-    return mask
-
-
 def _scatter_maps(data: CircuitData):
     """Static gather maps that realise the witness scatter on the device.
 
     The tape's value table is far smaller than the wire tensor [B, wires, n],
-    so it goes up compacted and is gathered on the device.  Only table rows
-    the device gathers are kept (wire positions, PI positions, PI values);
-    targets in circuit.derived_tids (range-lookup limbs) are left out and
-    derived from their value wires after the gather.  Kept slots are ordered
-    [narrow | wide]; the last compact index is a zero slot for unpopulated
-    cells."""
+    so it goes up compacted, as one u64 table, and is gathered on the device.
+    Only table rows the device gathers are kept (wire positions, PI
+    positions, PI values), in ascending target id; targets in
+    circuit.derived_tids (range-lookup limbs) are left out and derived from
+    their value wires after the gather.  The last compact index is a zero
+    slot for unpopulated cells."""
     circuit = data.circuit
     cfg = circuit.config
     n = data.n
@@ -860,10 +823,7 @@ def _scatter_maps(data: CircuitData):
     keep_mask[circuit.pos_tids] = True
     keep_mask[circuit.pi_tids] = True
     keep_mask[circuit.derived_tids] = False
-    narrow = _narrow_mask(circuit)
-    keep_ids = np.concatenate([np.nonzero(keep_mask & narrow)[0],
-                               np.nonzero(keep_mask & ~narrow)[0]])
-    num_narrow = int((keep_mask & narrow).sum())
+    keep_ids = np.nonzero(keep_mask)[0]
     Kc = len(keep_ids)
     new_of = np.full(T + 1, Kc, np.int64)  # default -> zero slot
     new_of[keep_ids] = np.arange(Kc)
@@ -880,21 +840,17 @@ def _scatter_maps(data: CircuitData):
     layouts = sorted(circuit.range_layouts.items())  # [(bits, (V, nl, lb, rows))]
     rows_arrays = [np.asarray(rows, np.int64) for _, (_V, _nl, _lb, rows) in layouts]
     layout_meta = tuple((bits, V, nl, lb) for bits, (V, nl, lb, _r) in layouts)
-    return imap, imap_pi, pit, keep_ids, num_narrow, rows_arrays, layout_meta
-
-
-class NarrowMisclassification(ValueError):
-    """A value the tape classified as narrow (< 2^32) is wider."""
+    return imap, imap_pi, pit, keep_ids, rows_arrays, layout_meta
 
 
 class Prover:
     """The production prover for one circuit on one device (make_jit_prover).
 
-    run_vals takes the tape's value table [T, B] u64 (Circuit.value_table): the
-    compacted table goes up (a u32 plane for the values statically known
-    below 2^32, u64 for the rest, range-lookup limbs dropped), the wire,
-    PI-polynomial and PI tensors are gathered and the limbs re-derived on the
-    device, and the proof comes back as a host Proof.
+    run_vals takes the tape's value table [T, B] u64 (Circuit.value_table):
+    the rows the device gathers go up whole, as one u64 table [B, Kc + 1]
+    (range-lookup limbs dropped, a zero slot last), the wire, PI-polynomial
+    and PI tensors are gathered and the limbs re-derived on the device, and
+    the proof comes back as a host Proof.
 
     On a CUDA device the device side, from the compact table to the packed
     proof buffer, runs as CUDA graphs: the first dispatch of a (path, batch
@@ -913,14 +869,11 @@ class Prover:
         self.shard = shard
         self.device = dev = data.device
         self.backend = Backend(data)
-        (imap, imap_pi, pit, keep_ids, num_narrow, rows_arrays,
-         self._layout_meta) = _scatter_maps(data)
-        self._keep_n, self._keep_w = keep_ids[:num_narrow], keep_ids[num_narrow:]
+        imap, imap_pi, pit, self._keep, rows_arrays, self._layout_meta = _scatter_maps(data)
         self._imap = torch.from_numpy(imap).to(dev)
         self._imap_pi = torch.from_numpy(imap_pi).to(dev)
         self._pit = torch.from_numpy(pit).to(dev)
         self._rows = [torch.from_numpy(r).to(dev) for r in rows_arrays]
-        self._host_map: np.ndarray | None = None
         self._graphs: dict = {}
         self._pool = None
 
@@ -937,18 +890,14 @@ class Prover:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
 
-    def _vals_split(self, vals: np.ndarray):
-        """[T, B] u64 -> (narrow u32 [B, Tn], wide u64 [B, Tw + 1]); the last
-        wide slot is the zero slot that unpopulated cells gather."""
-        vn = vals[self._keep_n]
-        over = (vn >> np.uint64(32)).any(axis=1)
-        if over.any():
-            bad = self._keep_n[np.nonzero(over)[0][:5]]
-            raise NarrowMisclassification(
-                f"narrow-classified witness targets exceed 32 bits: {bad}")
-        w = np.zeros((vals.shape[1], len(self._keep_w) + 1), np.uint64)
-        w[:, :-1] = vals[self._keep_w].T
-        return np.ascontiguousarray(vn.T.astype(np.uint32)), w
+    def _compact(self, vals: np.ndarray) -> np.ndarray:
+        """The value table [T, B] u64 -> the upload [B, Kc + 1] u64, C-contiguous:
+        the kept rows (_scatter_maps), lane-major, and the zero slot that
+        unpopulated cells gather."""
+        table = np.empty((vals.shape[1], len(self._keep) + 1), np.uint64)
+        table[:, :-1] = vals[self._keep].T
+        table[:, -1] = 0
+        return table
 
     def _derive_range_limbs(self, w):
         """Range-lookup limb wires from their value wires (prover.py:888):
@@ -961,30 +910,15 @@ class Prover:
             w[:, V:V + V * nl, rows] = st
         return w
 
-    def _expand(self, narrow, wide):
-        """Compact table on the device -> (wires, PI polys, PI values)."""
+    def _expand(self, table):
+        """The uploaded table [B, Kc + 1] int64 on the device -> (wires, PI
+        polys, PI values)."""
         n = self.data.n
-        vals = torch.cat([narrow.to(torch.int64) & gl.M32, wide], 1)   # [B, Kc + 1]
-        B = vals.shape[0]
-        wires = vals[:, self._imap].reshape(B, self.data.circuit.config.num_wires, n)
+        B = table.shape[0]
+        wires = table[:, self._imap].reshape(B, self.data.circuit.config.num_wires, n)
         wires = self._derive_range_limbs(wires)
-        pi = vals[:, self._imap_pi].reshape(B, self.data.circuit.pi.num_cols, n)
-        return wires, pi, vals[:, self._pit]
-
-    def _expand_host(self, vals: np.ndarray) -> np.ndarray:
-        """The value table [T, B] -> the full witness [num_wires, n, B] u64 on
-        the host (prover.py:992): raw table rows through read_map (the range
-        limbs are in the raw table), unpopulated cells from a zero row."""
-        circuit = self.data.circuit
-        n = self.data.n
-        num_wires = circuit.config.num_wires
-        if self._host_map is None:
-            full = np.full(num_wires * n, vals.shape[0], np.int64)
-            full[circuit.pos_cols * n + circuit.pos_rows] = circuit.read_map[circuit.pos_tids]
-            self._host_map = full
-        B = vals.shape[1]
-        vz = np.concatenate([vals, np.zeros((1, B), np.uint64)])
-        return vz[self._host_map].reshape(num_wires, n, B)
+        pi = table[:, self._imap_pi].reshape(B, self.data.circuit.pi.num_cols, n)
+        return wires, pi, table[:, self._pit]
 
     @property
     def _graphed(self) -> bool:
@@ -1021,34 +955,20 @@ class Prover:
         """Enqueue the prove of a full witness W [num_wires, n, B] u64;
         returns a handle for collect()."""
         with trace.dispatching("wide", W.shape[-1]) as pending:
-            return self._dispatch_wide(W, pis, pending)
-
-    def _dispatch_wide(self, W: np.ndarray, pis: np.ndarray, pending):
-        with trace.span("prove.split"):
-            host = [np.ascontiguousarray(a, np.uint64).view(np.int64)
-                    for a in (*host_prep(self.data, W, pis), pis)]
-        if self._graphed:
-            return self._replay("wide", lambda *t: t, host, pending), pis, pending
-        return self._eager(host, lambda *t: t, pending), pis, pending
+            with trace.span("prove.split"):
+                host = [np.ascontiguousarray(a, np.uint64).view(np.int64)
+                        for a in (*host_prep(self.data, W, pis), pis)]
+            if self._graphed:
+                return self._replay("wide", lambda *t: t, host, pending), pis, pending
+            return self._eager(host, lambda *t: t, pending), pis, pending
 
     def dispatch_vals(self, vals: np.ndarray, pis: np.ndarray):
-        """Enqueue the prove of a value table; returns a handle for collect().
-        Batch k + 1 may be dispatched before batch k is collected.  On a
-        narrow-plane violation the batch is not lost: a warning goes to stderr
-        and the table is expanded on the host and proved through the
-        full-witness path, on the same device with the same kernels (slower:
-        the whole wire tensor goes up)."""
+        """Enqueue the prove of a value table [T, B] u64; returns a handle for
+        collect().  Batch k + 1 may be dispatched before batch k is collected.
+        The table goes up as one u64 tensor (_compact), so no value is cut."""
         with trace.dispatching("vals", vals.shape[1]) as pending:
-            try:
-                with trace.span("prove.split"):
-                    vn, vw = self._vals_split(vals)
-            except NarrowMisclassification as e:
-                print(f"[prover] WARNING: {e}; falling back to the wide witness "
-                      "path for this batch", file=sys.stderr)
-                if pending is not None:
-                    pending.path = "wide"
-                return self._dispatch_wide(self._expand_host(vals), pis, pending)
-            host = (vn.view(np.int32), vw.view(np.int64))
+            with trace.span("prove.split"):
+                host = (self._compact(vals).view(np.int64),)
             if self._graphed:
                 return self._replay("vals", self._expand, host, pending), pis, pending
             return self._eager(host, self._expand, pending), pis, pending
@@ -1133,8 +1053,11 @@ class _CapturedProve:
         ins = {}
 
         def front():
-            ins["wires"], ins["pi"], ins["pis"] = _expand_stamped(expand, self.inputs)
-            return _front(data, bk, ins["wires"], ins["pi"], ins["pis"])
+            # only the PIs outlive the front graph (back reads them): the
+            # wires and PI polynomials die with it, so that the chunk and
+            # back captures reuse their blocks of the pool
+            wires, pi, ins["pis"] = _expand_stamped(expand, self.inputs)
+            return _front(data, bk, wires, pi, ins["pis"])
 
         with trace.stamping(st):
             self.front = graph.Captured(front, dev, run._pool, "front")

@@ -25,8 +25,8 @@ from ..hash import poseidon
 from . import fri as fri_mod
 from . import ntt
 from .challenger import Challenger
-from .data import CircuitData
-from .prover import Proof, _map_leaves, _z_columns
+from .data import CircuitData, z_columns
+from .prover import Proof, _map_leaves
 
 P = gl.P
 W = gl.W_EXT
@@ -152,7 +152,7 @@ def replay_challenges_to_zeta(data: CircuitData, proof: Proof):
     alphas = [ch.get_challenge() for _ in range(C)]
     ch.observe_cap(proof.quotient_cap)
     zeta = ch.get_ext()
-    return ch, betas, gammas, lk_alphas, alphas, zeta, _z_columns(data)
+    return ch, betas, gammas, lk_alphas, alphas, zeta, z_columns(data)
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +490,7 @@ def verify_one_exact(data: CircuitData, proof: Proof, b: int):
         gammas.append(_chal_int(ch))
     lk = data.lookup
     lk_alphas = [_chal_int(ch) for _ in range(C)] if lk is not None else []
-    z_idx = _z_columns(data)
+    z_idx = z_columns(data)
     ch.observe_cap(up(proof.zs_cap[b]))
     alphas = [_chal_int(ch) for _ in range(C)]
     ch.observe_cap(up(proof.quotient_cap[b]))

@@ -222,9 +222,7 @@ def _graph_body(run, expand, inputs):
 
 def _vals_body(run, vals):
     """The "vals" graphs' body: the upload's device expand first."""
-    vn, vw = run._vals_split(vals)
-    return _graph_body(run, run._expand, (torch.from_numpy(vn.view(np.int32)),
-                                          torch.from_numpy(vw.view(np.int64))))
+    return _graph_body(run, run._expand, (torch.from_numpy(run._compact(vals).view(np.int64)),))
 
 
 def _wide_body(run, W, pis):
@@ -343,7 +341,7 @@ def test_packed_readback_equals_per_leaf_readback(case, demo, nonnative):
     else:
         data, tables = nonnative
         vals, pis = tables[0]
-        W = prover.Prover(data)._expand_host(vals)
+        W = data.circuit.witness_matrix(vals)
     device_proof = prover.prove_core(data, prover.Backend(data),
                                      *prover._inputs_to_device(data, W, pis))
     buf = prover._pack_proof(device_proof)

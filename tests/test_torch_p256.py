@@ -100,7 +100,7 @@ def test_p256_widths(p256, run):
     assert lk.table_idx == data.fixed_values.shape[0] - 1
     assert data.fixed_lde.shape == (data.fixed_values.shape[0], 1 << 15)
     zs_width = 2 * (80 // 4) + 2 * lk.cols_per_challenge
-    assert prover._z_columns(data) == [0, 20, 40 + lk.cols_per_challenge - 1, zs_width - 1]
+    assert data_mod.z_columns(data) == [0, 20, 40 + lk.cols_per_challenge - 1, zs_width - 1]
     for _bits, V, nl, _lb in run._layout_meta:
         assert V == 31 and V + V * nl <= 128
 
@@ -139,35 +139,47 @@ def test_p256_check_accepts_signatures_and_refuses_a_bad_one(p256):
         sys_.check([stmts[1], bad])
 
 
+def _gathered(maps):
+    """What the upload maps of _scatter_maps mean, whatever the table's
+    order: the tape target each wire cell, PI cell and PI value gathers (-1
+    for the zero slot), and the range layouts."""
+    imap, imap_pi, pit, keep_ids, rows, meta = maps
+    ids = np.append(keep_ids, -1)
+    return ids[imap], ids[imap_pi], ids[pit], rows, meta
+
+
 def test_p256_upload_maps_equal_reference(p256):
-    """_narrow_mask (with the windowed path's random_access bits) and every
-    static gather map of the compact upload."""
+    """Every static gather map of the upload (with the windowed path's
+    random_access bits) gathers the reference's targets into the reference's
+    cells, and the range layouts are the reference's."""
     ref_sys, sys_ = p256
     assert any(op.rec and op.rec[0] == "random_access" for op in sys_.circuit.tape)
-    assert np.array_equal(prover._narrow_mask(sys_.circuit),
-                          ref_prover._narrow_mask(ref_sys.circuit))
-    got = prover._scatter_maps(types.SimpleNamespace(circuit=sys_.circuit, n=sys_.n))
-    want = ref_prover._scatter_maps(types.SimpleNamespace(circuit=ref_sys.circuit, n=ref_sys.n))
-    for g, w in zip(got[:4], want[:4]):
+    got = _gathered(prover._scatter_maps(types.SimpleNamespace(circuit=sys_.circuit, n=sys_.n)))
+    ref = ref_prover._scatter_maps(types.SimpleNamespace(circuit=ref_sys.circuit, n=ref_sys.n))
+    want = _gathered(ref[:4] + ref[5:])          # the reference's num_narrow left out
+    for g, w in zip(got[:3], want[:3]):
         assert np.array_equal(g, w)
-    assert got[4] == want[4] and got[6] == want[6]
-    assert all(np.array_equal(g, w) for g, w in zip(got[5], want[5]))
+    assert all(np.array_equal(g, w) for g, w in zip(got[3], want[3]))
+    assert len(got[3]) == len(want[3]) and got[4] == want[4]
 
 
 def test_p256_device_expand_and_host_expand_equal_the_witness(p256, run):
-    """The compact table gathered on the device (range limbs re-derived at
-    V = 31) and the fallback's host expansion both give the witness matrix."""
+    """The uploaded table (one C-contiguous u64 array, the zero slot last)
+    gathered on the device, range limbs re-derived at V = 31, gives the
+    witness matrix, the PI polynomials of host_prep and the PIs."""
     sys_ = p256[1]
     stmts = api.random_statements(api.P256, 2, seed=SEED)
     vals, pis = sys_.witness_vals(stmts)
     W = sys_.circuit.generate_witness(sys_._inputs(stmts), 2)
-    vn, vw = run._vals_split(vals)
-    wires, pi, pis_dev = run._expand(torch.from_numpy(vn.view(np.int32)), gl.from_u64(vw, "cpu"))
+    table = run._compact(vals)
+    assert table.dtype == np.uint64 and table.flags.c_contiguous
+    assert table.shape == (2, len(run._keep) + 1) and not table[:, -1].any()
+    wires, pi, pis_dev = run._expand(gl.from_u64(table, "cpu"))
     want_wires, want_pi = prover.host_prep(sys_.data, W, pis)
     assert np.array_equal(gl.to_u64(wires), want_wires)
     assert np.array_equal(gl.to_u64(pi), want_pi)
     assert np.array_equal(gl.to_u64(pis_dev), pis)
-    assert np.array_equal(run._expand_host(vals), W)
+    assert np.array_equal(sys_.circuit.witness_matrix(vals), W)
 
 
 def test_p256_fixed_commit_meets_the_anchor(p256, anchors):
@@ -182,10 +194,8 @@ def test_p256_wires_commit_meets_the_anchor(p256, run, anchors):
     equals the reference's numpy commitment."""
     sys_ = p256[1]
     vals, _pis = sys_.witness_vals(api.random_statements(api.P256, 1, seed=anchors["seed"]))
-    vn, vw = run._vals_split(vals)
-    cap = prover.prove_core(sys_.data, run.backend,
-                            *run._expand(torch.from_numpy(vn.view(np.int32)),
-                                         gl.from_u64(vw, "cpu")), stop_after="commit")
+    table = gl.from_u64(run._compact(vals), "cpu")
+    cap = prover.prove_core(sys_.data, run.backend, *run._expand(table), stop_after="commit")
     assert [f"{int(v):016x}" for v in gl.to_u64(cap)[0].ravel()] == \
         anchors["p256_lane0_wires_cap"]
 

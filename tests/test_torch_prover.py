@@ -1,8 +1,8 @@
 """Whole proofs: the port's own circuit, witness, fixed data and prover
 against the reference's numpy prove, leaf for leaf (tolerance 0), on the demo
 and nonnative-mul circuits; the production run_vals path against the
-full-witness path; the loud wide-path fallback on a narrow-plane violation;
-and the loud failures (exhausted grind, tampered proof)."""
+full-witness path; a value of 2^40 and more going up whole; and the loud
+failures (exhausted grind, tampered proof)."""
 
 import dataclasses
 
@@ -15,6 +15,7 @@ from plonky2_ecdsa_tpu.circuit.config import FriConfig as RefFri
 from plonky2_ecdsa_tpu.prover import data as ref_data_mod
 from plonky2_ecdsa_tpu.prover import prover as ref_prover
 from plonky2_ecdsa_tpu.prover.verifier import verify as ref_verify
+from plonky2_ecdsa_tpu_torch import trace
 from plonky2_ecdsa_tpu_torch.api import int_to_limbs
 from plonky2_ecdsa_tpu_torch.circuit.config import CircuitConfig, FriConfig
 from plonky2_ecdsa_tpu_torch.circuit.examples import (nonnative_mul_chain_circuit,
@@ -97,66 +98,54 @@ def test_run_vals_path_equals_witness_path(nonnative):
     assert prover.first_difference(from_reference_proof(ref), got) is None
 
 
-def _forged(data, vals):
-    """The value table with bit 40 set under the first narrow-classified slot
-    that is uploaded, and that slot."""
+def _written(c, kind: str, role: str) -> int:
+    """The first target a `kind` tape op writes as `role` that goes up (a
+    wire cell's target, neither a derived limb nor a public input)."""
+    up = np.setdiff1d(c.pos_tids, np.concatenate([c.derived_tids, c.pi_tids]))
+    for op in c.tape:
+        if op.rec is not None and op.rec[0] == kind and role in op.rec[1]:
+            tids = c.read_map[np.ravel(np.asarray(op.rec[1][role], dtype=np.int64))]
+            hit = tids[np.isin(tids, up)]
+            if len(hit):
+                return int(hit[0])
+    raise AssertionError(f"no uploaded {kind}.{role} target")
+
+
+@pytest.mark.parametrize("role,narrow", [("r", True), ("carry", False)])
+def test_wide_value_goes_up_whole(nonnative, capfd, role, narrow):
+    """Bit 40 set in lane 0 under a slot of mul_nn: its 29-bit product limb
+    "r", which the reference sends in its u32 plane, or its 34-bit carry,
+    which it sends as u64.  The one u64 table carries the value whole: no
+    warning, no "wide" path, and the proof equals the reference's proof of
+    the forged witness leaf for leaf.  The forged value is wrong for the
+    circuit, so both verifiers reject that proof, which shows the 64-bit
+    value went up and not a truncation; the honest table proves to the
+    reference's proof afterwards.  Bit 40 lies above every range-lookup limb
+    (at most 34 bits), so the limbs derived on the device are the honest
+    ones."""
+    data, W, vals, pis, ref_data, ref = nonnative
     c = data.circuit
-    mask = prover._narrow_mask(c)
-    mask[c.derived_tids] = False                     # derived targets are not uploaded
-    tid = int(np.nonzero(mask)[0][0])
+    tid = _written(c, "mul_nn", role)
+    assert vals[tid, 0] < 1 << 40
+    ref_keep, ref_num_narrow = ref_prover._scatter_maps(ref_data)[3:5]
+    assert (tid in ref_keep[:ref_num_narrow]) == narrow      # the reference's u32 plane
     bad = vals.copy()
     bad[tid, 0] |= np.uint64(1) << np.uint64(40)
-    return bad, tid
-
-
-def test_narrow_plane_violation_raises(nonnative):
-    """NarrowMisclassification stays the internal signal: the split of the
-    table raises it; dispatch_vals catches it (next test)."""
-    data, _W, vals, _pis, _ref_data, _ref = nonnative
-    bad, tid = _forged(data, vals)
-    with pytest.raises(prover.NarrowMisclassification, match=rf"\[{tid}\]"):
-        prover.make_prover(data)._vals_split(bad)
-
-
-def test_narrow_plane_violation_falls_back_to_wide_path(nonnative, capfd):
-    """Counterpart of the reference's test_misclassified_wide_value_falls_
-    back_to_wide_path: a value >= 2^32 under a narrow-classified slot is not
-    truncated and the batch is not lost.  dispatch_vals warns on stderr and
-    proves the host-expanded witness through the full-witness path: the proof
-    equals the reference's wide-path proof of the same forged table leaf for
-    leaf.  The forged value is wrong for the circuit, so (as in the reference)
-    both verifiers reject that proof, which shows the real 64-bit value went
-    up and not a truncation; an honest table proves through the narrow path
-    afterwards."""
-    data, W, vals, pis, ref_data, ref = nonnative
-    bad, tid = _forged(data, vals)
     run = prover.make_prover(data)
     got = run.collect(run.dispatch_vals(bad, pis))
-    err = capfd.readouterr().err
-    assert "falling back to the wide witness path" in err and f"[{tid}]" in err
-    bad_W = run._expand_host(bad)
-    assert int((bad_W != W).sum()) >= 1 and np.array_equal(bad_W >> np.uint64(40) << np.uint64(40),
-                                                           bad_W ^ W)
+    assert capfd.readouterr().err == ""
+    assert ("wide", 2) not in run.graph_stats and trace.batches()[-1].path == "vals"
+    bad_W = c.witness_matrix(bad)                    # W, bit 40 on tid's cells in lane 0
+    cells = c.pos_tids == tid
+    flip = np.zeros_like(W)
+    flip[c.pos_cols[cells], c.pos_rows[cells], 0] = np.uint64(1) << np.uint64(40)
+    assert flip.any() and np.array_equal(bad_W ^ W, flip)
     want = ref_prover.prove(ref_data, bad_W, pis)
     assert prover.first_difference(from_reference_proof(want), got) is None
     assert not verify(data, got) and not ref_verify(ref_data, to_reference_proof(got))
     again = run.run_vals(vals, pis)
     assert capfd.readouterr().err == ""
     assert prover.first_difference(from_reference_proof(ref), again) is None
-
-
-def test_misclassified_role_falls_back_and_still_proves(nonnative, capfd, monkeypatch):
-    """The fault the fallback exists for: a tape role classified narrow whose
-    honest values are wider (here the 34-bit carries of mul_nn declared
-    narrow).  The honest table then takes the wide path, with the warning,
-    and gives the very proof of the narrow path, which both verifiers accept."""
-    data, _W, vals, pis, ref_data, ref = nonnative
-    monkeypatch.setitem(prover._NARROW_ROLES, "mul_nn", ("q", "r", "carry"))
-    run = prover.make_prover(data)
-    got = run.run_vals(vals, pis)
-    assert "falling back to the wide witness path" in capfd.readouterr().err
-    assert prover.first_difference(from_reference_proof(ref), got) is None
-    assert verify(data, got) and ref_verify(ref_data, to_reference_proof(got))
 
 
 def test_exhausted_grind_is_rejected_at_collection(demo):
